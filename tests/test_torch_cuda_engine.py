@@ -1,0 +1,329 @@
+"""The fused rollout kernel's wrapper, model packing and build, and the
+kernel's own arithmetic on the CPU.
+
+The CUDA source cannot run here, but its device code is plain C++ over
+one rollout: ``tests/torch_host_rollout.cpp`` compiles the same headers
+with g++ (the CUDA qualifiers defined away, the grid a loop) and the
+tests hold that build to the plain version, ``fused_rollout_cost_reference``.
+A test marked ``cuda`` runs the kernel itself on a card."""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from quadruped_gym_tpu_torch.models import spec
+from quadruped_gym_tpu_torch.ops import _build, cuda_engine
+from quadruped_gym_tpu_torch.ops import leg_engine as LE
+from quadruped_gym_tpu_torch.ops.lane_engine import LaneState
+from quadruped_gym_tpu_torch.physics.engine import State, make_state
+from quadruped_gym_tpu_torch.tasks.commands import make
+from quadruped_gym_tpu_torch.tasks.rewards import SensorSlices
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PREV = [0.0, 0.0, -0.5] * 4
+
+
+def _model(name):
+    return getattr(spec, f"get_{name}_model")()
+
+
+def _inputs(m, kind, S, H, seed, dtype=torch.float64):
+    rng = np.random.default_rng(seed)
+    qpos = np.asarray(m.qpos0) + 0.02 * rng.standard_normal(m.nq)
+    if kind == "airborne":
+        qpos[2] += 0.5
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype)  # noqa: E731
+    st = State(qpos=t(qpos), qvel=t(0.1 * rng.standard_normal(m.nv)),
+               act=t(PREV), time=t(0.0), sensordata=t(np.zeros(33)))
+    seqs = t(np.clip(np.asarray(PREV) + 0.3 * rng.standard_normal((S, H, 12)),
+                     -1.0, 1.0))
+    cmd = make(t([0.2, 0.1]), t(0.3))
+    return st, seqs, cmd, t(PREV)
+
+
+# --------------------------------------------------------------------------
+# model packing
+
+
+def _cuh_fields():
+    """(name, element count) of ``LegModel`` in csrc/leg_model.cuh, in
+    declaration order, split into real and int fields."""
+    with open(os.path.join(_build.CSRC, "leg_model.cuh")) as f:
+        src = f.read()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    body = src[src.index("struct LegModel {"):]
+    body = body[:body.index("};")]
+    real, ints = [], []
+    for typ, name, dims in re.findall(r"^\s*(T|int) (\w+)((?:\[\w+\])*);",
+                                      body, re.M):
+        n = 1
+        for d in re.findall(r"\[(\w+)\]", dims):
+            n *= consts[d] if d in consts else int(d)
+        (real if typ == "T" else ints).append((name, n))
+    return consts, real, ints
+
+
+def test_model_struct_matches_header():
+    consts, real, ints = _cuh_fields()
+    assert consts["MAX_GROUPS"] == cuda_engine.MAX_GROUPS
+    assert consts["MAX_VERTS"] == cuda_engine.MAX_VERTS
+    assert real == list(cuda_engine._LAYOUT)
+    assert ints == list(cuda_engine._INT_LAYOUT)
+
+
+@pytest.mark.parametrize("name,ngroup", [("planning", 1), ("fast_plant", 3)])
+def test_pack_model(name, ngroup):
+    m = _model(name)
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        P = cuda_engine.pack_model(m, dtype)
+        n_real = sum(n for _, n in cuda_engine._LAYOUT)
+        n_int = sum(n for _, n in cuda_engine._INT_LAYOUT)
+        packed = n_real * size + n_int * 4
+        assert ctypes.sizeof(P) == -(-packed // size) * size  # tail padding
+        assert P.timestep == pytest.approx(m.timestep)
+        assert P.ngroup == ngroup
+        nverts = [P.grp_nvert[g] for g in range(P.ngroup)]
+        assert sum(nverts) == sum(
+            len(m.col_hull_verts[grp[0]])
+            for _, grp in LE._leg_static(m).col_groups)
+        assert all(1 <= P.grp_nslot[g] <= 3 for g in range(P.ngroup))
+    buf = cuda_engine._model_buffer(m, torch.float64, "cpu")
+    assert buf.numel() == ctypes.sizeof(cuda_engine.model_struct(torch.float64))
+    assert cuda_engine._model_buffer(m, torch.float64, "cpu") is buf
+
+
+def test_command_scalars():
+    cmd = make(torch.tensor([0.3, -0.4], dtype=torch.float64),
+               torch.tensor(0.5, dtype=torch.float64))
+    c = cuda_engine.command_scalars(cmd, torch.float64)
+    np.testing.assert_allclose(c.numpy(), [0.6, -0.8, 0.5, np.cos(0.5),
+                                           np.sin(0.5)], rtol=1e-15)
+    z = cuda_engine.command_scalars(
+        make(torch.zeros(2, dtype=torch.float64),
+             torch.tensor(0.0, dtype=torch.float64)), torch.float32)
+    assert z.dtype == torch.float32
+    np.testing.assert_array_equal(z.numpy(), [0, 0, 0, 1, 0])
+
+
+# --------------------------------------------------------------------------
+# wrapper, build, operation count
+
+
+def test_wrapper_takes_the_plain_version_only_on_the_cpu():
+    m = _model("planning")
+    st, seqs, cmd, prev = _inputs(m, "grounded", 4, 1, 0)
+    cuda_engine.reset_launch_counts()
+    got = cuda_engine.fused_rollout_cost(m, st, seqs, cmd, prev, 2, 2, 4)
+    ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, 2,
+                                                   2, 4)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert cuda_engine.launch_counts["fused_rollout_cost"] == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_engine.fused_rollout_cost(m, st, seqs.to("meta"), cmd, prev, 2)
+
+
+def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
+    """No nvcc: the build raises; nothing falls back to the CPU."""
+    monkeypatch.setattr(_build, "build_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: False if p.endswith("nvcc") else
+                        os.path.isfile(p) or os.path.isdir(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load(cuda_engine.KERNEL_SOURCE, "float32")
+
+
+def test_build_names_and_flags():
+    f32 = _build._lib_path(cuda_engine.KERNEL_SOURCE, "float32")
+    f64 = _build._lib_path(cuda_engine.KERNEL_SOURCE, "float64")
+    assert f32 != f64 and "float32" in f32 and f32.endswith(".so")
+    flags = _build._flags("float64")
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-DQG_REAL=double" in flags and "-O3" in flags
+    assert os.path.isfile(os.path.join(_build.CSRC,
+                                       cuda_engine.KERNEL_SOURCE))
+
+
+def test_rollout_flops():
+    m = _model("planning")
+    one = cuda_engine.rollout_flops(m, 1, 2, 2, 4)
+    two = cuda_engine.rollout_flops(m, 2, 2, 2, 4)
+    assert one > 1e4
+    assert two == pytest.approx(2 * one, rel=0.01)
+    assert cuda_engine.rollout_flops(_model("fast_plant"), 1, 2, 2, 4) > one
+
+
+_X = torch.arange(1.0, 7.0, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("fn,want", [
+    (lambda: torch.sqrt(_X), 6),
+    (lambda: torch.rsqrt(_X), 6),
+    (lambda: _X * 2.0 + 1.0, 12),
+    (lambda: torch.where(_X > 3.0, _X, 0.0), 12),
+    (lambda: torch.sum(_X), 6),
+    (lambda: torch.linalg.vector_norm(_X), 12),
+    (lambda: torch.dot(_X, _X), 12),
+    (lambda: _X.reshape(2, 3) @ _X.reshape(3, 2), 24),
+    (lambda: torch.stack([_X[0], _X[1]]).t().clone(), 0),
+])
+def test_count_ops(fn, want):
+    """Each aten op is counted by name, an FMA as two operations."""
+    assert cuda_engine.count_ops(fn)[1] == want
+
+
+def test_count_ops_refuses_unclassified_ops():
+    with pytest.raises(NotImplementedError, match="cumsum"):
+        cuda_engine.count_ops(torch.cumsum, _X, 0)
+
+
+# --------------------------------------------------------------------------
+# the kernel's own source, built for the host
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("g++ is needed to build the kernel source for the host")
+    out = str(tmp_path_factory.mktemp("host") / "host_rollout.so")
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{_build.CSRC}", "-o", out,
+                    os.path.join(HERE, "torch_host_rollout.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(out)
+    for dt in ("f32", "f64"):
+        f = getattr(lib, f"qg_host_rollout_{dt}")
+        f.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+            ctypes.c_double]
+        getattr(lib, f"qg_model_size_{dt}").restype = ctypes.c_int
+    lib.qg_host_substep_f64.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib
+
+
+def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None):
+    dt = seqs.dtype
+    P = cuda_engine.pack_model(m, dt)
+    S = seqs.shape[0]
+    lanes = [None if dp is None else getattr(dp, n)
+             for n in cuda_engine._DP_ORDER]
+    lanes = [None if v is None else v.to(dt).contiguous() for v in lanes]
+    ptrs = (ctypes.c_void_p * 7)(*[0 if v is None else v.data_ptr()
+                                   for v in lanes])
+    vecs = [x.to(dt).contiguous() for x in (st.qpos, st.qvel, st.act, prev)]
+    seq = seqs.permute(1, 2, 0).contiguous()
+    cs = cuda_engine.command_scalars(cmd, dt).contiguous()
+    out = torch.empty(S, dtype=dt)
+    fn = lib.qg_host_rollout_f64 if dt == torch.float64 else \
+        lib.qg_host_rollout_f32
+    fn(ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
+       vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
+       ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13)
+    return out
+
+
+def test_host_struct_size(host_lib):
+    for dt, tdt in (("f32", torch.float32), ("f64", torch.float64)):
+        assert getattr(host_lib, f"qg_model_size_{dt}")() == ctypes.sizeof(
+            cuda_engine.model_struct(tdt))
+
+
+@pytest.mark.parametrize("airborne,it", [(False, 0), (False, 4), (True, 4)])
+def test_host_substep_matches_leg_engine(host_lib, airborne, it):
+    m = _model("planning")
+    P = cuda_engine.pack_model(m, torch.float64)
+    rng = np.random.default_rng(int(airborne) + it)
+    q = np.asarray(m.qpos0) + 0.05 * rng.standard_normal(19)
+    q[2] += 0.5 if airborne else 0.0
+    qv = 0.1 * rng.standard_normal(18)
+    act = np.array(PREV, np.float64)
+    ctrl = np.array([0.1, -0.1, -0.5] * 4)
+    ls = LaneState(*(torch.as_tensor(x)[:, None] for x in (q, qv, act)),
+                   torch.zeros(1, dtype=torch.float64),
+                   torch.zeros((33, 1), dtype=torch.float64))
+    ref = LE._step_impl(m, ls, torch.as_tensor(ctrl)[:, None], it, 8)
+    sens = np.zeros(6)
+    host_lib.qg_host_substep_f64(ctypes.addressof(P), q.ctypes.data,
+                                 qv.ctypes.data, act.ctypes.data,
+                                 ctrl.ctypes.data, it, 8, sens.ctypes.data)
+    np.testing.assert_allclose(q, ref.qpos[:, 0].numpy(), rtol=1e-12,
+                               atol=1e-13)
+    np.testing.assert_allclose(qv, ref.qvel[:, 0].numpy(), rtol=1e-10,
+                               atol=1e-11)
+    np.testing.assert_allclose(act, ref.act[:, 0].numpy(), rtol=1e-14,
+                               atol=1e-15)
+    sl = SensorSlices.from_model(m)
+    idx = [sl.vel, sl.vel + 1, sl.xaxis, sl.xaxis + 1, sl.zaxis + 2,
+           sl.pos + 2]
+    np.testing.assert_allclose(sens, ref.sensordata[idx, 0].numpy(),
+                               rtol=1e-10, atol=1e-11)
+
+
+@pytest.mark.parametrize("name,kind,H,fs,with_dp", [
+    ("planning", "grounded", 1, 5, False),
+    ("planning", "airborne", 3, 2, False),
+    ("planning", "grounded", 1, 3, True),
+    ("fast_plant", "grounded", 1, 5, False),
+    ("fast_plant", "airborne", 2, 2, True),
+])
+def test_host_rollout_matches_plain_version(host_lib, name, kind, H, fs,
+                                            with_dp):
+    m = _model(name)
+    S = 16
+    st, seqs, cmd, prev = _inputs(m, kind, S, H, seed=H + fs)
+    dp = None
+    if with_dp:
+        dp = spec.sample_domain_params(
+            torch.Generator().manual_seed(1), S, tilt_range=(-0.1, 0.1),
+            terrain_amp_range=(0.0, 0.02), dtype=torch.float64)
+    ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, fs,
+                                                   4, 8, dp=dp)
+    got = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-8,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize("name,budget", [("planning", (2, 4)),
+                                         ("fast_plant", (4, 8))])
+def test_host_rollout_float32(host_lib, name, budget):
+    """float32 against the float32 plain version: rounding (~6e-8 an
+    operation) amplified through the contact solve; 1e-4 is the bound
+    chip_smoke.py holds the card to as well."""
+    m = _model(name)
+    st, seqs, cmd, prev = _inputs(m, "grounded", 32, 1, 5, torch.float32)
+    ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, 5,
+                                                   *budget)
+    got = _host_rollout(host_lib, m, st, seqs, cmd, prev, 5, *budget)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# on the card
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python3 chip_smoke.py)")
+    m = _model("planning")
+    st, seqs, cmd, prev = _inputs(m, "grounded", 256, 1, 9)
+    st = State(*(x.cuda() for x in st))
+    seqs, prev = seqs.cuda(), prev.cuda()
+    cmd = type(cmd)(*(x.cuda() for x in cmd))
+    cuda_engine.reset_launch_counts()
+    got = cuda_engine.fused_rollout_cost(m, st, seqs, cmd, prev, 5, 4, 8)
+    torch.cuda.synchronize()
+    assert cuda_engine.launch_counts["fused_rollout_cost"] == 1
+    ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, 5,
+                                                   4, 8)
+    torch.testing.assert_close(got, ref, rtol=1e-8, atol=1e-8)
+    assert make_state(m, device="cuda").qpos.is_cuda
