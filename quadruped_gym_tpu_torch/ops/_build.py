@@ -82,10 +82,17 @@ def _finish(job, source: str, dtype: str) -> None:
         f.write(text)
 
 
-def build_all(sources=("rollout_kernel.cu",),
-              dtypes=("float32", "float64")) -> None:
+def kernel_sources():
+    """Every source in ``csrc/`` that defines kernels (the ``*.cu``)."""
+    return tuple(sorted(os.path.basename(p)
+                        for p in glob.glob(os.path.join(CSRC, "*.cu"))))
+
+
+def build_all(sources=None, dtypes=("float32", "float64")) -> None:
     """Build every (source, dtype) library that is missing, all nvcc
-    processes at once."""
+    processes at once. ``sources`` defaults to every kernel source."""
+    if sources is None:
+        sources = kernel_sources()
     jobs = [(s, d, _start(s, d)) for s in sources for d in dtypes]
     for s, d, job in jobs:
         if job is not None:

@@ -5,6 +5,7 @@
 #pragma once
 
 #include <math.h>
+#include <stddef.h>
 
 namespace qg {
 

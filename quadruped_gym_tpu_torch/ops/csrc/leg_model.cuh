@@ -12,6 +12,17 @@ constexpr int NLEV = 3;
 constexpr int MAX_GROUPS = 4;
 constexpr int MAX_VERTS = 1024;
 constexpr int MAX_SLOTS = 3 * MAX_GROUPS;  // contact slots per leg
+constexpr int MAX_SENSORS = 24;
+
+// sensor kinds of the table below (MuJoCo's mjtSensor values)
+constexpr int SENS_ACCELEROMETER = 1;
+constexpr int SENS_VELOCIMETER = 2;
+constexpr int SENS_GYRO = 3;
+constexpr int SENS_JOINTPOS = 9;
+constexpr int SENS_FRAMEPOS = 26;
+constexpr int SENS_FRAMEXAXIS = 28;
+constexpr int SENS_FRAMEZAXIS = 30;
+constexpr int SENS_FRAMELINVEL = 31;
 
 template <typename T>
 struct LegModel {
@@ -76,6 +87,14 @@ struct LegModel {
   int grp_nslot[MAX_GROUPS];
   int grp_vstart[MAX_GROUPS];
   int grp_nvert[MAX_GROUPS];
+  // sensor table: where each sensor of the model writes in sensordata.
+  // A joint-position sensor reads leg joint 3 * leg + level (sens_joint);
+  // every other kind reads the IMU site on the base.
+  int nsensordata;
+  int nsensor;
+  int sens_kind[MAX_SENSORS];
+  int sens_adr[MAX_SENSORS];
+  int sens_joint[MAX_SENSORS];
 };
 
 }  // namespace qg

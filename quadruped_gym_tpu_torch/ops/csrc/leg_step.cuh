@@ -30,6 +30,24 @@ template <typename T> struct Domain {
   T friction, gain, mass, tilt_x, tilt_y, amp, freq;
 };
 
+// lane s of the DomainParams lanes
+template <typename T> QG_DEV Domain<T> load_domain(const DomainLanes<T>& lanes, size_t s) {
+  Domain<T> dp;
+  dp.has_friction = lanes.friction != nullptr;
+  dp.has_gain = lanes.gain_scale != nullptr;
+  dp.has_mass = lanes.base_mass_scale != nullptr;
+  dp.has_tilt = lanes.tilt_x != nullptr || lanes.tilt_y != nullptr;
+  dp.has_terrain = lanes.terrain_amp != nullptr;
+  dp.friction = dp.has_friction ? lanes.friction[s] : T(0);
+  dp.gain = dp.has_gain ? lanes.gain_scale[s] : T(1);
+  dp.mass = dp.has_mass ? lanes.base_mass_scale[s] : T(1);
+  dp.tilt_x = lanes.tilt_x ? lanes.tilt_x[s] : T(0);
+  dp.tilt_y = lanes.tilt_y ? lanes.tilt_y[s] : T(0);
+  dp.amp = dp.has_terrain ? lanes.terrain_amp[s] : T(0);
+  dp.freq = dp.has_terrain ? lanes.terrain_freq[s] : T(0);
+  return dp;
+}
+
 // the sensor readings the walking stage cost needs
 template <typename T> struct CostSensors {
   T vel[2];    // velocimeter x, y

@@ -32,11 +32,14 @@ QG_DEV void terrain_plane(const LegModel<T>& M, const Domain<T>& dp, T x, T y, T
 }
 
 // One substep in place on (q, qv, act) under ctrl. When ``sens`` is not
-// null the pre-integration cost sensors are written there.
-template <typename T>
-QG_DEV void leg_substep(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18], T act[12],
-                        const T ctrl[12], int iterations, int ls_iterations,
-                        CostSensors<T>* sens) {
+// null the pre-integration cost sensors are written there. With FULL, and
+// when ``full`` is not null, every sensor of the model's table is written
+// to full[adr * stride] (pre-integration values too); without FULL that
+// code is not compiled, so the fused rollout pays nothing for it.
+template <bool FULL, typename T>
+QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18],
+                             T act[12], const T ctrl[12], int iterations, int ls_iterations,
+                             CostSensors<T>* sens, T* full, size_t stride) {
   const T h = M.timestep;
   T ql[3][4], qvl[3][4], al[3][4], cl[3][4];
 #pragma unroll
@@ -486,6 +489,64 @@ QG_DEV void leg_substep(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv
     sens->pos_z = spos[2];
   }
 
+  // ---- all sensors of the model's table (pre-integration, base site):
+  // ops/leg_engine.py::_sensors with the base's spatial acceleration
+  // assembled from the solved free accelerations ----
+  if constexpr (FULL) {
+    if (full != nullptr) {
+      T tmp[3], spos[3], smat[9], p[3], vsite[3], w3[3];
+      mat_vec(bmat, M.site_pos, tmp);
+      for (int i = 0; i < 3; ++i) spos[i] = org[i] + tmp[i];
+      mat_mul(bmat, M.site_mat, smat);
+      for (int i = 0; i < 3; ++i) p[i] = spos[i] - org[i];
+      cross3(vb, p, w3);
+      for (int i = 0; i < 3; ++i) vsite[i] = vb[3 + i] + w3[i];
+      // cacc_base = (0, -g) + sum_d x_free[d] S_free[d] + v_base x vJ_base
+      const T vJb[6] = {vb[0], vb[1], vb[2], vb[3] - qv[0], vb[4] - qv[1], vb[5] - qv[2]};
+      T mc[6], alpha[3], a0[3];
+      motion_cross(vb, vJb, mc);
+      for (int i = 0; i < 3; ++i) {
+        alpha[i] = ((xf[3] * ax[0][i] + xf[4] * ax[1][i]) + xf[5] * ax[2][i]) + mc[i];
+        a0[i] = (xf[i] - M.gravity[i]) + mc[3 + i];
+      }
+      T c1[3], c2[3], asite[3];
+      cross3(alpha, p, c1);
+      cross3(vb, vsite, c2);
+      for (int i = 0; i < 3; ++i) asite[i] = a0[i] + (c1[i] + c2[i]);
+      T accel[3], gyro[3], vloc[3];
+      mat_tvec(smat, asite, accel);
+      mat_tvec(smat, vb, gyro);
+      mat_tvec(smat, vsite, vloc);
+      const T xaxis[3] = {smat[0], smat[3], smat[6]};
+      const T zaxis[3] = {smat[2], smat[5], smat[8]};
+      auto put3 = [&](int adr, const T v[3]) {
+        for (int i = 0; i < 3; ++i) full[(size_t)(adr + i) * stride] = v[i];
+      };
+      for (int s = 0; s < M.nsensor; ++s) {
+        const int adr = M.sens_adr[s];
+        switch (M.sens_kind[s]) {
+          case SENS_JOINTPOS: {
+            // compare-and-keep, so q stays in registers (no dynamic index)
+            T v = T(0);
+#pragma unroll
+            for (int j = 0; j < 12; ++j)
+              if (j == M.sens_joint[s]) v = q[7 + j];
+            full[(size_t)adr * stride] = v;
+            break;
+          }
+          case SENS_ACCELEROMETER: put3(adr, accel); break;
+          case SENS_GYRO: put3(adr, gyro); break;
+          case SENS_FRAMEPOS: put3(adr, spos); break;
+          case SENS_FRAMELINVEL: put3(adr, vsite); break;
+          case SENS_FRAMEXAXIS: put3(adr, xaxis); break;
+          case SENS_FRAMEZAXIS: put3(adr, zaxis); break;
+          case SENS_VELOCIMETER: put3(adr, vloc); break;
+          default: break;  // pack_model refuses other kinds
+        }
+      }
+    }
+  }
+
   // ---- implicitfast: (M - h diag(D)) dv = h M qacc ----
   {
     Blocks<T> Mh = Mb;
@@ -523,6 +584,24 @@ QG_DEV void leg_substep(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv
     quat_integrate(quat, om, h);
     for (int i = 0; i < 4; ++i) q[3 + i] = quat[i];
   }
+}
+
+// the fused rollout's substep: the cost's 6 sensors only
+template <typename T>
+QG_DEV void leg_substep(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18], T act[12],
+                        const T ctrl[12], int iterations, int ls_iterations,
+                        CostSensors<T>* sens) {
+  leg_substep_impl<false>(M, dp, q, qv, act, ctrl, iterations, ls_iterations, sens,
+                          static_cast<T*>(nullptr), (size_t)0);
+}
+
+// the substep kernel's: every sensor, written strided, when ``full`` is set
+template <typename T>
+QG_DEV void leg_substep_full(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18],
+                             T act[12], const T ctrl[12], int iterations, int ls_iterations,
+                             T* full, size_t stride) {
+  leg_substep_impl<true>(M, dp, q, qv, act, ctrl, iterations, ls_iterations,
+                         static_cast<CostSensors<T>*>(nullptr), full, stride);
 }
 
 }  // namespace qg

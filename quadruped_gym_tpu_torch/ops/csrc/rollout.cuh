@@ -42,19 +42,7 @@ QG_DEV T rollout_cost(const LegModel<T>& M, const T* qpos0, const T* qvel0, cons
                       const T* seqs, const T* prev0, const T* cmd_in, const DomainLanes<T>& lanes,
                       int s, int S, int H, int frame_skip, int iterations, int ls_iterations,
                       T height) {
-  Domain<T> dp;
-  dp.has_friction = lanes.friction != nullptr;
-  dp.has_gain = lanes.gain_scale != nullptr;
-  dp.has_mass = lanes.base_mass_scale != nullptr;
-  dp.has_tilt = lanes.tilt_x != nullptr || lanes.tilt_y != nullptr;
-  dp.has_terrain = lanes.terrain_amp != nullptr;
-  dp.friction = dp.has_friction ? lanes.friction[s] : T(0);
-  dp.gain = dp.has_gain ? lanes.gain_scale[s] : T(1);
-  dp.mass = dp.has_mass ? lanes.base_mass_scale[s] : T(1);
-  dp.tilt_x = lanes.tilt_x ? lanes.tilt_x[s] : T(0);
-  dp.tilt_y = lanes.tilt_y ? lanes.tilt_y[s] : T(0);
-  dp.amp = dp.has_terrain ? lanes.terrain_amp[s] : T(0);
-  dp.freq = dp.has_terrain ? lanes.terrain_freq[s] : T(0);
+  const Domain<T> dp = load_domain(lanes, (size_t)s);
 
   T q[19], qv[18], act[12], prev[12], ctrl[12], cmd[5];
   for (int i = 0; i < 19; ++i) q[i] = qpos0[i];

@@ -1,16 +1,22 @@
-"""The fused whole-rollout cost: one CUDA kernel launch per solve.
+"""The CUDA kernels of the leg-batched physics and their wrappers.
 
-Counterpart of ``fused_rollout_cost`` in
-``quadruped_gym_tpu/ops/pallas_engine.py`` (the Pallas TPU kernel
-``_rollout_kernel``). For each of S rollouts from one shared start state
-it runs H control steps x ``frame_skip`` leg-engine substeps at a fixed
-Newton / line-search budget and sums the walking stage cost; the kernel is
-``csrc/rollout_kernel.cu``.
+Counterpart of ``quadruped_gym_tpu/ops/pallas_engine.py``, which holds the
+JAX package's two Pallas TPU kernels:
 
-``fused_rollout_cost`` launches the kernel for CUDA tensors and runs the
-plain version, ``fused_rollout_cost_reference`` (the eager leg engine and
-``solvers.rollout.walking_stage_cost``), only for CPU tensors. The
-model's constants are packed into one ``LegModel`` struct
+* ``fused_rollout_cost`` (``_rollout_kernel`` there): for each of S
+  rollouts from one shared start state, H control steps x ``frame_skip``
+  leg-engine substeps at a fixed Newton / line-search budget, with the
+  walking stage cost summed; one launch per solve of
+  ``csrc/rollout_kernel.cu``.
+* ``step`` / ``control_step`` (``_substep_kernel`` there): one substep, or
+  the ``frame_skip`` substeps of a control step, per lane of a batch-minor
+  ``LaneState``, writing every sensor; one launch of
+  ``csrc/substep_kernel.cu`` per call.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (``fused_rollout_cost_reference``, ``step_reference``,
+``control_step_reference``: the eager leg engine) only for CPU tensors.
+The model's constants are packed into one ``LegModel`` struct
 (``csrc/leg_model.cuh``) and uploaded once per (model, dtype, device).
 """
 
@@ -23,9 +29,13 @@ import numpy as np
 import torch
 
 from ..models.spec import (
+    SENSOR_ACCELEROMETER,
+    SENSOR_FRAMELINVEL,
     SENSOR_FRAMEPOS,
     SENSOR_FRAMEXAXIS,
     SENSOR_FRAMEZAXIS,
+    SENSOR_GYRO,
+    SENSOR_JOINTPOS,
     SENSOR_VELOCIMETER,
     DomainParams,
     PhysicsModel,
@@ -36,11 +46,18 @@ from . import leg_engine as LE
 from .lane_engine import LaneState, _kb_from_solref, _np_quat_mat, _static
 
 KERNEL_SOURCE = "rollout_kernel.cu"
+SUBSTEP_SOURCE = "substep_kernel.cu"
 MAX_GROUPS = 4
 MAX_VERTS = 1024
+MAX_SENSORS = 24
+# sensor kinds the kernels' sensor table takes, by their size
+_SENSOR_DIMS = {SENSOR_JOINTPOS: 1, SENSOR_ACCELEROMETER: 3, SENSOR_GYRO: 3,
+                SENSOR_FRAMEPOS: 3, SENSOR_FRAMELINVEL: 3,
+                SENSOR_FRAMEXAXIS: 3, SENSOR_FRAMEZAXIS: 3,
+                SENSOR_VELOCIMETER: 3}
 
 # launches of each kernel wrapper; a run sets them to 0 and reads them
-launch_counts = {"fused_rollout_cost": 0}
+launch_counts = {"fused_rollout_cost": 0, "substep": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,7 +95,9 @@ _LAYOUT = [
 ]
 _INT_LAYOUT = [("ngroup", 1), ("grp_level", MAX_GROUPS),
                ("grp_nslot", MAX_GROUPS), ("grp_vstart", MAX_GROUPS),
-               ("grp_nvert", MAX_GROUPS)]
+               ("grp_nvert", MAX_GROUPS), ("nsensordata", 1), ("nsensor", 1),
+               ("sens_kind", MAX_SENSORS), ("sens_adr", MAX_SENSORS),
+               ("sens_joint", MAX_SENSORS)]
 
 
 def _fields(c):
@@ -125,6 +144,35 @@ def _check_cost_sensors(m: PhysicsModel) -> None:
                 f"sensor at {adr} is not of kind {kind}")
     LE._require(m.site_bodyid == LE._leg_static(m).base,
                 "IMU site must live on the base body")
+
+
+def _pack_sensors(m: PhysicsModel, P) -> None:
+    """The sensor table: kind, sensordata address and, for a joint
+    position, the leg joint 3 * leg + level it reads. Every entry of
+    sensordata must be written by exactly one sensor."""
+    if len(m.sensors) > MAX_SENSORS:
+        raise LE.IncompatibleModelError(
+            f"{len(m.sensors)} sensors; the kernel takes {MAX_SENSORS}")
+    covered = np.zeros(m.nsensordata, np.int64)
+    P.nsensordata = m.nsensordata
+    P.nsensor = len(m.sensors)
+    for i, sn in enumerate(m.sensors):
+        if _SENSOR_DIMS.get(sn.kind) != sn.dim:
+            raise LE.IncompatibleModelError(
+                f"sensor kind {sn.kind} of size {sn.dim} is not supported")
+        joint = 0
+        if sn.kind == SENSOR_JOINTPOS:
+            joint = m.jnt_qposadr[sn.objid] - 7
+            if not 0 <= joint < 12:
+                raise LE.IncompatibleModelError(
+                    f"joint-position sensor {i} does not read a leg joint")
+        covered[sn.adr: sn.adr + sn.dim] += 1
+        P.sens_kind[i] = sn.kind
+        P.sens_adr[i] = sn.adr
+        P.sens_joint[i] = joint
+    if not np.all(covered == 1):
+        raise LE.IncompatibleModelError(
+            "the sensors do not tile sensordata exactly once")
 
 
 def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
@@ -186,6 +234,7 @@ def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
     _set(P.site_pos, m.site_pos)
     _set(P.site_mat, _np_quat_mat(m.site_quat))
     _set(P.joint_centers, JOINT_CENTERS)
+    _pack_sensors(m, P)
 
     groups = ls.col_groups
     if len(groups) > MAX_GROUPS:
@@ -293,16 +342,22 @@ _DP_ORDER = ("friction", "gain_scale", "base_mass_scale", "tilt_x", "tilt_y",
              "terrain_amp", "terrain_freq")
 
 
-def _library(dtype: torch.dtype) -> ctypes.CDLL:
+def _library(source: str, dtype: torch.dtype) -> ctypes.CDLL:
     name = {torch.float32: "float32", torch.float64: "float64"}[dtype]
-    lib = _build.load(KERNEL_SOURCE, name)
+    lib = _build.load(source, name)
     if not getattr(lib, "_qg_bound", False):
         lib.qg_model_size.restype = ctypes.c_int
         lib.qg_model_size.argtypes = []
-        lib.qg_fused_rollout.restype = ctypes.c_int
-        lib.qg_fused_rollout.argtypes = (
-            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-            + [ctypes.c_double, ctypes.c_void_p])
+        if source == KERNEL_SOURCE:
+            lib.qg_fused_rollout.restype = ctypes.c_int
+            lib.qg_fused_rollout.argtypes = (
+                [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                + [ctypes.c_double, ctypes.c_void_p])
+        else:
+            lib.qg_substeps.restype = ctypes.c_int
+            lib.qg_substeps.argtypes = (
+                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
         size = lib.qg_model_size()
         if size != ctypes.sizeof(model_struct(dtype)):
             raise RuntimeError(
@@ -310,6 +365,27 @@ def _library(dtype: torch.dtype) -> ctypes.CDLL:
                 f"ctypes {ctypes.sizeof(model_struct(dtype))}")
         lib._qg_bound = True
     return lib
+
+
+def _dp_lanes(dp: Optional[DomainParams], n: int, dt, dev) -> list:
+    """The 7 DomainParams lanes in the kernels' order, None where
+    nominal; each given lane must be a contiguous (n,) tensor of the
+    state's type on its device."""
+    dp = dp if dp is not None else DomainParams()
+    if dp.terrain_amp is not None and dp.terrain_freq is None:
+        raise ValueError("DomainParams.terrain_amp requires terrain_freq")
+    lanes = []
+    for name in _DP_ORDER:
+        v = getattr(dp, name)
+        if v is None or (name == "terrain_freq" and dp.terrain_amp is None):
+            lanes.append(None)
+            continue
+        if (v.device != dev or v.dtype != dt or v.shape != (n,)
+                or not v.is_contiguous()):
+            raise ValueError(f"DomainParams.{name} must be a contiguous "
+                             f"({n},) {dt} tensor on {dev}")
+        lanes.append(v)
+    return lanes
 
 
 def fused_rollout_cost(
@@ -348,22 +424,9 @@ def fused_rollout_cost(
     act, prev = vec(state0.act, m.na), vec(prev_ctrl0, nu)
     seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
     cmd_scal = command_scalars(cmd, dt).to(dev).contiguous()
-    dp = dp if dp is not None else DomainParams()
-    if dp.terrain_amp is not None and dp.terrain_freq is None:
-        raise ValueError("DomainParams.terrain_amp requires terrain_freq")
-    lanes = []
-    for name in _DP_ORDER:
-        v = getattr(dp, name)
-        if v is None or (name == "terrain_freq" and dp.terrain_amp is None):
-            lanes.append(None)
-            continue
-        if (v.device != dev or v.dtype != dt or v.shape != (S,)
-                or not v.is_contiguous()):
-            raise ValueError(f"DomainParams.{name} must be a contiguous "
-                             f"({S},) {dt} tensor on {dev}")
-        lanes.append(v)
+    lanes = _dp_lanes(dp, S, dt, dev)
     model = _model_buffer(m, dt, dev)
-    lib = _library(dt)
+    lib = _library(KERNEL_SOURCE, dt)
     out = torch.empty(S, dtype=dt, device=dev)
     err = lib.qg_fused_rollout(
         model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(), act.data_ptr(),
@@ -375,6 +438,110 @@ def fused_rollout_cost(
         raise RuntimeError(f"fused_rollout_cost launch failed: CUDA error {err}")
     launch_counts["fused_rollout_cost"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# the substep kernel: plain versions and wrappers
+
+
+def step_reference(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
+                   solver_iterations: int = 4, ls_iterations: int = 8,
+                   dp: Optional[DomainParams] = None,
+                   compute_sensors: bool = True) -> LaneState:
+    """One substep in eager PyTorch: the kernel's plain version, which is
+    ``leg_engine.step`` except that without sensors the returned
+    sensordata is zeros (the eager engine passes the old one through)."""
+    out = LE._step_impl(m, ls, ctrl, solver_iterations, ls_iterations,
+                        compute_sensors=compute_sensors, dp=dp)
+    if not compute_sensors:
+        out = out._replace(sensordata=torch.zeros_like(out.sensordata))
+    return out
+
+
+def control_step_reference(m: PhysicsModel, ls: LaneState,
+                           ctrl: torch.Tensor, frame_skip: int,
+                           solver_iterations: int = 4, ls_iterations: int = 8,
+                           dp: Optional[DomainParams] = None) -> LaneState:
+    """``frame_skip`` substeps under constant control, sensors on the
+    last, in eager PyTorch (``leg_engine.control_step``)."""
+    return LE.control_step(m, ls, ctrl, frame_skip, solver_iterations,
+                           ls_iterations, dp=dp)
+
+
+def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
+                     compute_sensors) -> LaneState:
+    dev, dt = ls.qpos.device, ls.qpos.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"the substep kernel takes float32/float64, got {dt}")
+    if nsub < 1:
+        raise ValueError("frame_skip must be >= 1")
+    if (m.nq, m.nv, m.na, m.nu) != (19, 18, 12, 12):
+        raise ValueError("the substep kernel takes the 12-servo quadruped "
+                         "(nq 19, nv 18, na 12, nu 12)")
+    B = ls.qpos.shape[-1]
+
+    def rows(x, n, name):
+        if x.shape != (n, B) or x.dtype != dt or x.device != dev:
+            raise ValueError(
+                f"{name} must be a ({n}, {B}) {dt} tensor on {dev}, got "
+                f"{tuple(x.shape)} {x.dtype} on {x.device}")
+        return x.contiguous()  # a copy only where a view was passed
+
+    qpos, qvel = rows(ls.qpos, m.nq, "qpos"), rows(ls.qvel, m.nv, "qvel")
+    act, ctrl = rows(ls.act, m.na, "act"), rows(ctrl, m.nu, "ctrl")
+    if ls.time.shape != (B,):
+        raise ValueError(f"time must have shape ({B},)")
+    lanes = _dp_lanes(dp, B, dt, dev)
+    model = _model_buffer(m, dt, dev)
+    lib = _library(SUBSTEP_SOURCE, dt)
+    qpos_o, qvel_o, act_o = (torch.empty_like(x) for x in (qpos, qvel, act))
+    sens_o = torch.empty((m.nsensordata, B), dtype=dt, device=dev)
+    err = lib.qg_substeps(
+        model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(), act.data_ptr(),
+        ctrl.data_ptr(), *[0 if v is None else v.data_ptr() for v in lanes],
+        qpos_o.data_ptr(), qvel_o.data_ptr(), act_o.data_ptr(),
+        sens_o.data_ptr(), B, nsub, solver_iterations, ls_iterations,
+        int(bool(compute_sensors)), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"substep kernel launch failed: CUDA error {err}")
+    launch_counts["substep"] += 1
+    time = ls.time
+    for _ in range(nsub):  # as the plain version adds it, substep by substep
+        time = time + m.timestep
+    return LaneState(qpos=qpos_o, qvel=qvel_o, act=act_o, time=time,
+                     sensordata=sens_o)
+
+
+def step(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
+         solver_iterations: int = 4, ls_iterations: int = 8,
+         dp: Optional[DomainParams] = None,
+         compute_sensors: bool = True) -> LaneState:
+    """One physics step (mj_step semantics) per lane, one kernel launch.
+    ``ctrl`` is (nu, B); ``dp`` an optional ``DomainParams`` of (B,)
+    lanes. With ``compute_sensors=False`` the returned sensordata is
+    zeros. CPU tensors go to the plain version; CUDA tensors to the
+    kernel, which raises rather than fall back."""
+    if ls.qpos.device.type == "cpu":
+        return step_reference(m, ls, ctrl, solver_iterations, ls_iterations,
+                              dp, compute_sensors)
+    return _launch_substeps(m, ls, ctrl, 1, solver_iterations, ls_iterations,
+                            dp, compute_sensors)
+
+
+def control_step(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
+                 frame_skip: int, solver_iterations: int = 4,
+                 ls_iterations: int = 8,
+                 dp: Optional[DomainParams] = None) -> LaneState:
+    """``frame_skip`` substeps under constant control with the sensors of
+    the last, in ONE kernel launch: the state stays in registers between
+    the substeps. CPU tensors go to the plain version."""
+    if ls.qpos.device.type == "cpu":
+        return control_step_reference(m, ls, ctrl, frame_skip,
+                                      solver_iterations, ls_iterations, dp)
+    return _launch_substeps(m, ls, ctrl, frame_skip, solver_iterations,
+                            ls_iterations, dp, True)
 
 
 # --------------------------------------------------------------------------
@@ -461,4 +628,28 @@ def rollout_flops(m: PhysicsModel, horizon: int, frame_skip: int,
     prev = torch.zeros(m.nu, dtype=dt)
     _, n = count_ops(fused_rollout_cost_reference, m, st, seqs, cmd, prev,
                      frame_skip, solver_iterations, ls_iterations, dp=dp)
+    return n / lanes
+
+
+def substep_flops(m: PhysicsModel, nsub: int, solver_iterations: int,
+                  ls_iterations: int, sensors: bool = True,
+                  dp: Optional[DomainParams] = None, lanes: int = 4) -> float:
+    """Operations (``count_ops``) of ``nsub`` substeps of ONE lane, with
+    the sensors of the last when ``sensors``: the plain version run on
+    ``lanes`` CPU lanes, divided by ``lanes``."""
+    from .lane_engine import make_lane_state
+
+    dt = torch.float64
+    ls = make_lane_state(m, lanes, dtype=dt, device="cpu")
+    ctrl = torch.zeros((m.nu, lanes), dtype=dt)
+
+    def run():
+        st = ls
+        for _ in range(nsub - 1):
+            st = step_reference(m, st, ctrl, solver_iterations, ls_iterations,
+                                dp, compute_sensors=False)
+        return step_reference(m, st, ctrl, solver_iterations, ls_iterations,
+                              dp, compute_sensors=sensors)
+
+    _, n = count_ops(run)
     return n / lanes

@@ -35,7 +35,9 @@ class MPPIConfig:
     lane: bool = False
     lane_newton_iterations: int = 4
     lane_ls_iterations: int = 8
-    # "fused" (the CUDA whole-rollout kernel) or "leg" (eager engine)
+    # "fused" (the CUDA whole-rollout kernel, walking stage cost only),
+    # "pallas" (the substep kernel per control step, any cost_fn) or "leg"
+    # (eager engine)
     lane_engine_impl: str = "leg"
 
 

@@ -102,32 +102,32 @@ def lane_batched_rollout_cost(
     ``engine_impl="fused"`` runs the whole rollout (all H x frame_skip
     substeps plus the walking stage cost) in one CUDA kernel launch
     (``ops.cuda_engine.fused_rollout_cost``; ``cost_fn`` must be
-    ``make_cost_fn(m)``, whose math the kernel hard-wires). ``"leg"``
-    loops the eager leg engine with ``cost_fn``. ``"pallas"`` and
-    ``"lane"`` are not ported yet."""
-    from ..ops import leg_engine
+    ``make_cost_fn(m)``, whose math the kernel hard-wires). ``"pallas"``
+    keeps the JAX package's name for the per-control-step path: one
+    launch of the substep kernel (``ops.cuda_engine.control_step``) per
+    control step, then ``cost_fn`` on the sensors it wrote, so any stage
+    cost works. ``"leg"`` loops the eager leg engine with ``cost_fn``.
+    ``"lane"`` is not ported yet."""
+    from ..ops import cuda_engine, leg_engine
 
     if engine_impl not in ("lane", "leg", "pallas", "fused"):
         raise ValueError(
             f"unknown engine_impl {engine_impl!r}; "
             "valid: 'lane', 'leg', 'pallas', 'fused'"
         )
-    if engine_impl in ("pallas", "lane"):
+    if engine_impl == "lane":
         raise NotImplementedError(
-            f"engine_impl={engine_impl!r} is not ported yet "
-            "(ROADMAP.md: B2 / A.10)")
+            "engine_impl='lane' is not ported yet (ROADMAP.md A.10)")
     if not leg_engine.is_compatible(m):
         raise NotImplementedError(
             "the model is not leg-compatible; its engine (the lane engine) "
             "is not ported yet (ROADMAP.md A.10)")
     if engine_impl == "fused":
-        from ..ops import cuda_engine
-
         if not getattr(cost_fn, "_is_walking_stage_cost", False):
             raise ValueError(
                 "engine_impl='fused' hard-wires the walking stage cost "
                 "inside the kernel; a custom cost_fn would be silently "
-                "ignored. Use make_cost_fn(m), or engine_impl='leg' "
+                "ignored. Use make_cost_fn(m), or engine_impl='pallas' "
                 "for custom costs."
             )
         return cuda_engine.fused_rollout_cost(
@@ -148,11 +148,12 @@ def lane_batched_rollout_cost(
                    act=lanes(state0.act),
                    time=state0.time.to(dt).expand(S),
                    sensordata=lanes(state0.sensordata))
-    seqs = ctrl_seqs.permute(1, 2, 0)  # (H, nu, S)
+    seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
     prev = lanes(prev_ctrl0)
     total = torch.zeros(S, dtype=dt, device=ctrl_seqs.device)
+    eng = cuda_engine if engine_impl == "pallas" else leg_engine
     for t in range(H):
-        ls = leg_engine.control_step(
+        ls = eng.control_step(
             m, ls, seqs[t], cfg.frame_skip,
             solver_iterations=newton_iterations,
             ls_iterations=ls_iterations, dp=dp,

@@ -1,0 +1,273 @@
+"""The velocity/heading-command walking task as reset/step functions on a
+batch of environments.
+
+Counterpart of ``quadruped_gym_tpu/tasks/walking.py`` with every piece of
+env-object state an explicit carry. Where the JAX package vmaps a
+per-sample function over environments, the functions here work on a
+leading env axis directly: every field of ``WalkingState`` is
+(num_envs, ...). Random keys become a ``torch.Generator`` that the caller
+holds, so ``WalkingState`` has no ``key``.
+
+Step ordering matches the reference exactly: ideal-position integration
+and the frequency/amplitude-estimator update (fed the *previous* applied
+ctrl) happen before the physics substeps; the settling mask overrides
+early actions; rewards read the post-step sensordata.
+
+Cross-episode persistence quirks preserved: the estimator state and the
+frozen control-cost reference survive reset.
+
+The per-sample ``step`` runs on the oracle engine, which is not ported
+yet; ``batched_step`` runs the physics through the batch-minor engines.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models.spec import PhysicsModel
+from ..physics.engine import State, make_state
+from . import commands, estimator, observations, rewards
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkingConfig:
+    """Static task configuration (constructor kwargs in the reference)."""
+
+    max_time: float = 10.0
+    frame_skip: int = 4
+    settling_time: float = 0.0
+    random_controls: bool = False
+    random_init: bool = False
+    reset_options: commands.SampleOptions = commands.SampleOptions()
+    obs_window: int = 1  # PO variant frame stacking
+    partial_obs: bool = False
+    solver_iterations: Optional[int] = None
+    min_freq: float = 1.0  # estimator config
+    ema_alpha: float = 0.80
+    dtype: torch.dtype = torch.float32
+
+    def control_dt(self, m: PhysicsModel) -> float:
+        return m.timestep * self.frame_skip
+
+
+class WalkingState(NamedTuple):
+    phys: State  # fields (N, ...)
+    cmd: commands.Command
+    ideal_position: torch.Tensor  # (N, 3)
+    est: estimator.FreqAmpState
+    rew: rewards.RewardCarry
+    obs: observations.PoObsCarry  # Madgwick quat + frame stack (PO)
+    applied_ctrl: torch.Tensor  # (N, 12) data.ctrl equivalent
+
+
+class StepOutput(NamedTuple):
+    state: WalkingState
+    obs: torch.Tensor  # (N, obs_size)
+    reward: torch.Tensor  # (N,)
+    terminated: torch.Tensor  # (N,) bool
+    reward_components: torch.Tensor  # (N, 11) ordered as rewards.REWARD_KEYS
+
+
+def obs_size(cfg: WalkingConfig, m: PhysicsModel) -> int:
+    if cfg.partial_obs:
+        return observations.PO_OBS_DIM * cfg.obs_window
+    return m.nsensordata
+
+
+def clip_ctrl(m: PhysicsModel, ctrl: torch.Tensor) -> torch.Tensor:
+    """Clamp (..., nu) controls to the actuators' ctrlrange."""
+    lo = torch.as_tensor(np.asarray(m.actuator_ctrlrange[:, 0]),
+                         dtype=ctrl.dtype, device=ctrl.device)
+    hi = torch.as_tensor(np.asarray(m.actuator_ctrlrange[:, 1]),
+                         dtype=ctrl.dtype, device=ctrl.device)
+    return torch.clamp(ctrl, lo, hi)
+
+
+def _fresh_persistent(cfg: WalkingConfig, m: PhysicsModel, num_envs, device):
+    W = estimator.window_size(cfg.min_freq, cfg.control_dt(m))
+    est = estimator.init(m.nu, W, dtype=cfg.dtype, device=device,
+                         batch_shape=(num_envs,))
+    rew = rewards.init_carry(dtype=cfg.dtype, device=device,
+                             batch_shape=(num_envs,))
+    return est, rew
+
+
+def reset(
+    m: PhysicsModel,
+    cfg: WalkingConfig,
+    num_envs: int,
+    generator: torch.Generator,
+    persistent: Optional[Tuple[estimator.FreqAmpState,
+                               rewards.RewardCarry]] = None,
+    options: Optional[commands.SampleOptions] = None,
+) -> Tuple[WalkingState, torch.Tensor]:
+    """Reset ``num_envs`` episodes on the generator's device.
+    ``persistent`` carries the estimator/ctrl-cost state across episodes
+    (reference behavior); omit for a cold start."""
+    dt, N = cfg.dtype, num_envs
+    dev = resolve_device(generator.device)
+    sl = rewards.SensorSlices.from_model(m)
+
+    one = make_state(m, dtype=dt, device=dev)
+    phys = State(*(x.expand((N,) + x.shape).clone() for x in one))
+    # reset control
+    ctrl0 = rewards.joint_centers(dt, dev, (N,))
+
+    if cfg.random_init:
+        # random base yaw: angle ~ U(0, 2pi)
+        angle = 2.0 * math.pi * torch.rand(N, generator=generator, dtype=dt,
+                                           device=dev)
+        zero = torch.zeros_like(angle)
+        quat = torch.stack([torch.cos(angle / 2), zero, zero,
+                            torch.sin(angle / 2)], dim=-1)
+        qpos = phys.qpos.clone()
+        qpos[:, 3:7] = quat
+        phys = phys._replace(qpos=qpos)
+
+    if cfg.random_controls:
+        opts = options if options is not None else cfg.reset_options
+        cmd = commands.sample(generator, opts, dtype=dt, batch_shape=(N,))
+    else:
+        cmd = commands.zero(dtype=dt, device=dev, batch_shape=(N,))
+
+    est, rew = (persistent if persistent is not None
+                else _fresh_persistent(cfg, m, N, dev))
+    rew = rewards.episode_reset_carry(rew)
+
+    obs_carry = observations.po_init_carry(cfg.obs_window, dtype=dt,
+                                           device=dev, batch_shape=(N,))
+    # PO reset obs computed with the STALE filter quat
+    if cfg.partial_obs:
+        frame, _ = observations.po_observation(
+            sl, phys.sensordata, ctrl0, cmd, obs_carry.mad_quat,
+            phys.time, cfg.settling_time, cfg.control_dt(m),
+        )
+        obs_carry = observations.PoObsCarry(
+            mad_quat=phys.qpos[:, 3:7],  # re-seed from the true orientation
+            buffer=observations.stack_fill(obs_carry.buffer, frame),
+        )
+        obs = obs_carry.buffer.reshape(N, -1)
+    else:
+        obs = phys.sensordata
+
+    state = WalkingState(
+        phys=phys,
+        cmd=cmd,
+        ideal_position=torch.zeros((N, 3), dtype=dt, device=dev),
+        est=est,
+        rew=rew,
+        obs=obs_carry,
+        applied_ctrl=ctrl0,
+    )
+    return state, obs
+
+
+def step(m: PhysicsModel, cfg: WalkingConfig, state: WalkingState,
+         action: torch.Tensor) -> StepOutput:
+    raise NotImplementedError(
+        "walking.step runs one environment on the oracle engine, which is "
+        "not ported yet (ROADMAP.md A.8); use batched_step")
+
+
+def batched_step(
+    m: PhysicsModel,
+    cfg: WalkingConfig,
+    state: WalkingState,  # leading axis N
+    action: torch.Tensor,  # (N, nu)
+    engine_impl: str = "auto",
+    newton_iterations: Optional[int] = None,
+    ls_iterations: int = 8,
+) -> StepOutput:
+    """One control step of every environment, physics through a
+    batch-minor engine. ``engine_impl``: ``"pallas"`` keeps the JAX
+    package's name for the substep kernel
+    (``ops.cuda_engine.control_step``, one launch per call);
+    ``"leg"``, and ``"auto"`` for a leg-compatible model, is the eager leg
+    engine. Models that are not leg-compatible need the lane engine,
+    which is not ported yet. The Newton budget is a fixed iteration
+    count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
+    (or 4 when that is None)."""
+    from ..ops import cuda_engine, lane_engine, leg_engine
+
+    if engine_impl not in ("auto", "leg", "pallas", "lane"):
+        raise ValueError(f"unknown engine_impl {engine_impl!r}; "
+                         "valid: 'auto', 'leg', 'pallas', 'lane'")
+    if engine_impl == "lane" or not leg_engine.is_compatible(m):
+        raise NotImplementedError(
+            "the lane engine (engine_impl='lane', and every model that is "
+            "not leg-compatible) is not ported yet (ROADMAP.md A.10)")
+    if newton_iterations is None:
+        newton_iterations = cfg.solver_iterations or 4
+
+    dt = cfg.dtype
+    sl = rewards.SensorSlices.from_model(m)
+    cdt = cfg.control_dt(m)
+    N = action.shape[0]
+
+    # 1. ideal-position integration
+    ideal = state.ideal_position + state.cmd.global_velocity * cdt  # (N, 3)
+
+    # 2. estimator update on the PREVIOUS applied ctrl
+    est, f_est, a_est = estimator.update(state.est, state.applied_ctrl, cdt,
+                                         cfg.ema_alpha)
+
+    # 3. settling mask
+    centers = rewards.joint_centers(dt, action.device)
+    action = torch.where((state.phys.time < cfg.settling_time)[:, None],
+                         centers[None], action)
+
+    # 4. clip + physics substeps through the batch-minor engine
+    ctrl = clip_ctrl(m, action.to(dt))
+    eng = cuda_engine if engine_impl == "pallas" else leg_engine
+    ls = lane_engine.from_batched(*state.phys)
+    ls = eng.control_step(
+        m, ls, ctrl.T, cfg.frame_skip,
+        solver_iterations=newton_iterations, ls_iterations=ls_iterations,
+    )
+    phys = State(*lane_engine.to_batched(ls))
+
+    # 5. reward on post-step sensordata
+    out = rewards.input_control_reward(
+        phys.sensordata, ctrl, state.cmd, ideal, f_est, a_est, state.rew, sl,
+        cdt)
+
+    # 6. termination: flip OR time limit
+    terminated = (rewards.flip_termination(ls.sensordata, sl)
+                  | rewards.time_termination(phys.time, cfg.max_time))
+
+    # 7. observation
+    if cfg.partial_obs:
+        frame, mad_q = observations.po_observation(
+            sl, phys.sensordata, ctrl, state.cmd, state.obs.mad_quat,
+            phys.time, cfg.settling_time, cdt,
+        )
+        obs_carry = observations.PoObsCarry(
+            mad_quat=mad_q,
+            buffer=observations.stack_push(state.obs.buffer, frame))
+        obs = obs_carry.buffer.reshape(N, -1)
+    else:
+        obs_carry = state.obs
+        obs = phys.sensordata
+
+    new_state = WalkingState(
+        phys=phys,
+        cmd=state.cmd,
+        ideal_position=ideal,
+        est=est,
+        rew=out.carry,
+        obs=obs_carry,
+        applied_ctrl=ctrl,
+    )
+    return StepOutput(
+        state=new_state,
+        obs=obs,
+        reward=out.total,
+        terminated=terminated,
+        reward_components=out.components,
+    )

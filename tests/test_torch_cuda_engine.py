@@ -5,17 +5,17 @@ The CUDA source cannot run here, but its device code is plain C++ over
 one rollout: ``tests/torch_host_rollout.cpp`` compiles the same headers
 with g++ (the CUDA qualifiers defined away, the grid a loop) and the
 tests hold that build to the plain version, ``fused_rollout_cost_reference``.
-A test marked ``cuda`` runs the kernel itself on a card."""
+The tests marked ``cuda`` run the kernels themselves on a card."""
 
 import ctypes
 import os
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
+
+import torch_host_lib
 
 from quadruped_gym_tpu_torch.models import spec
 from quadruped_gym_tpu_torch.ops import _build, cuda_engine
@@ -25,7 +25,6 @@ from quadruped_gym_tpu_torch.physics.engine import State, make_state
 from quadruped_gym_tpu_torch.tasks.commands import make
 from quadruped_gym_tpu_torch.tasks.rewards import SensorSlices
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 PREV = [0.0, 0.0, -0.5] * 4
 
 
@@ -149,6 +148,11 @@ def test_build_names_and_flags():
     assert "-DQG_REAL=double" in flags and "-O3" in flags
     assert os.path.isfile(os.path.join(_build.CSRC,
                                        cuda_engine.KERNEL_SOURCE))
+    # every kernel source is built, and each has its wrapper's name
+    assert _build.kernel_sources() == (cuda_engine.KERNEL_SOURCE,
+                                       cuda_engine.SUBSTEP_SOURCE)
+    sub = _build._lib_path(cuda_engine.SUBSTEP_SOURCE, "float32")
+    assert sub != f32 and "substep_kernel" in sub
 
 
 def test_rollout_flops():
@@ -190,23 +194,7 @@ def test_count_ops_refuses_unclassified_ops():
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("g++ is needed to build the kernel source for the host")
-    out = str(tmp_path_factory.mktemp("host") / "host_rollout.so")
-    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
-                    f"-I{_build.CSRC}", "-o", out,
-                    os.path.join(HERE, "torch_host_rollout.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(out)
-    for dt in ("f32", "f64"):
-        f = getattr(lib, f"qg_host_rollout_{dt}")
-        f.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-            ctypes.c_double]
-        getattr(lib, f"qg_model_size_{dt}").restype = ctypes.c_int
-    lib.qg_host_substep_f64.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p]
-    return lib
+    return torch_host_lib.build(tmp_path_factory.mktemp("host"))
 
 
 def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None):
@@ -327,3 +315,34 @@ def test_kernel_matches_plain_version_on_card():
                                                    4, 8)
     torch.testing.assert_close(got, ref, rtol=1e-8, atol=1e-8)
     assert make_state(m, device="cuda").qpos.is_cuda
+
+
+@pytest.mark.cuda
+def test_substep_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python3 chip_smoke.py)")
+    m = _model("planning")
+    B = 200  # not a multiple of the block size
+    rng = np.random.default_rng(9)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cuda")  # noqa: E731
+    qpos = np.asarray(m.qpos0)[:, None] + 0.02 * rng.standard_normal((19, B))
+    ls = LaneState(qpos=t(qpos), qvel=t(0.1 * rng.standard_normal((18, B))),
+                   act=t(np.tile(np.array(PREV)[:, None], (1, B))),
+                   time=t(np.zeros(B)), sensordata=t(np.ones((33, B))))
+    ctrl = t(np.clip(np.array(PREV)[:, None]
+                     + 0.3 * rng.standard_normal((12, B)), -1.0, 1.0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dp = spec.sample_domain_params(gen, B, tilt_range=(-0.1, 0.1),
+                                   terrain_amp_range=(0.0, 0.02),
+                                   dtype=torch.float64)
+    cuda_engine.reset_launch_counts()
+    got = cuda_engine.control_step(m, ls, ctrl, 3, 4, 8, dp=dp)
+    torch.cuda.synchronize()
+    assert cuda_engine.launch_counts["substep"] == 1
+    ref = cuda_engine.control_step_reference(m, ls, ctrl, 3, 4, 8, dp)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-8, atol=1e-8)
+    none = cuda_engine.step(m, ls, ctrl, 4, 8, compute_sensors=False)
+    assert float(none.sensordata.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="must be a"):
+        cuda_engine.step(m, ls, ctrl.to(torch.float32))

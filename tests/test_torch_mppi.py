@@ -15,12 +15,14 @@ import torch
 from quadruped_gym_tpu.models import spec as jspec
 from quadruped_gym_tpu.physics import engine as jengine
 from quadruped_gym_tpu.runtime import mpc_runtime as jrt
+from quadruped_gym_tpu.solvers import cem as jcem
 from quadruped_gym_tpu.solvers import mppi as jmppi
 from quadruped_gym_tpu.tasks import commands as jcommands
 from quadruped_gym_tpu_torch import convert
 from quadruped_gym_tpu_torch.models import spec as tspec
 from quadruped_gym_tpu_torch.physics.engine import make_state
 from quadruped_gym_tpu_torch.runtime import mpc_runtime as trt
+from quadruped_gym_tpu_torch.solvers import cem as tcem
 from quadruped_gym_tpu_torch.solvers import mppi as tmppi
 from quadruped_gym_tpu_torch.solvers import rollout as trollout
 
@@ -86,7 +88,8 @@ def test_plan_on_cpu_runs_the_fused_plain_version():
 
 def test_mpc_config_refuses_unported_solvers():
     assert trt.MPCConfig().solver == "mppi"
-    for solver in ("cem", "sqp", "ilqr"):
+    assert trt.MPCConfig(solver="cem").rollout == tcem.CEMConfig().rollout
+    for solver in ("sqp", "ilqr"):
         with pytest.raises(NotImplementedError, match="not ported"):
             trt.MPCConfig(solver=solver)
 
@@ -100,6 +103,13 @@ def test_init_carry_matches_jax():
     for f in ("mean", "sigma", "prev_ctrl"):
         np.testing.assert_array_equal(getattr(tc, f).numpy(),
                                       np.asarray(getattr(jc, f)))
+    # sigma comes from the CEM config, as in the JAX package
+    wide = trt.init_carry(tm, trt.MPCConfig(cem=tcem.CEMConfig(
+        init_sigma=0.7)), 5, seed=0, dtype=torch.float64, device="cpu")
+    jwide = jrt.init_carry(jm, jrt.MPCConfig(cem=jcem.CEMConfig(
+        init_sigma=0.7)), 5, jax.random.PRNGKey(0), dtype=jnp.float64)
+    np.testing.assert_array_equal(wide.sigma.numpy(), np.asarray(jwide.sigma))
+    assert float(wide.sigma[0, 0]) == 0.7
     via = convert.mpc_carry(jc, seed=0, device="cpu")
     for f in ("mean", "sigma", "prev_ctrl"):
         np.testing.assert_array_equal(getattr(via, f).numpy(),

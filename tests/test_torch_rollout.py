@@ -6,7 +6,14 @@ The JAX side runs ``lane_batched_rollout_cost(engine_impl="leg")``
 eagerly; tests/test_pallas_engine.py holds it equal to the Pallas fused
 kernel at rtol 1e-8 on these shapes. Grounded rollouts are compared over
 ONE control step only (contact makes bit-different programs diverge
-chaotically over longer grounded horizons), airborne ones over H = 3."""
+chaotically over longer grounded horizons), airborne ones over H = 3.
+
+The per-control-step path (``engine_impl="pallas"``: the substep kernel
+and a caller's stage cost) is held to the same JAX path with the same
+custom cost: the JAX package's own ``"pallas"`` path differs from its
+``"leg"`` path only in the engine behind ``control_step``, which
+tests/test_torch_substep.py compares on its own, and its interpret-mode
+``pallas_call`` costs many minutes of XLA compile."""
 
 import jax
 import jax.numpy as jnp
@@ -82,6 +89,45 @@ def test_fused_reference_matches_jax(name, airborne, H, with_dp):
                                atol=1e-8)
 
 
+@pytest.mark.parametrize("name,airborne,H,with_dp", [
+    ("planning", False, 1, False),
+    ("planning", True, 2, True),
+])
+def test_pallas_path_with_custom_cost_matches_jax(name, airborne, H, with_dp):
+    """A stage cost the fused kernel refuses (vel_smooth_eps > 0), from a
+    moving start: rtol = atol = 1e-8 against the JAX package, and equal to
+    the port's own eager path to rounding."""
+    jm, tm, st, seqs, cmd = _case(name, airborne, H, seed=17 + H)
+    cfg = jrollout.RolloutConfig(horizon=H, frame_skip=2)
+    dp = _dp(5) if with_dp else None
+    jdp = None if dp is None else jspec.DomainParams(
+        *(jnp.asarray(v) for v in dp))
+    with jax.disable_jit():
+        want = jrollout.lane_batched_rollout_cost(
+            jm, cfg, jrollout.make_cost_fn(jm, vel_smooth_eps=0.02), st,
+            jnp.asarray(seqs), cmd, jnp.asarray(PREV), newton_iterations=4,
+            ls_iterations=8, engine_impl="leg", dp=jdp)
+    tcfg = trollout.RolloutConfig(horizon=H, frame_skip=2)
+    args = (tm, tcfg, trollout.make_cost_fn(tm, vel_smooth_eps=0.02),
+            convert.state(st, device="cpu"), torch.as_tensor(seqs),
+            convert.command(cmd, device="cpu"), torch.as_tensor(PREV))
+    kw = dict(newton_iterations=4, ls_iterations=8,
+              dp=None if dp is None else convert.domain_params(
+                  dp, device="cpu"))
+    cuda_engine.reset_launch_counts()
+    got = trollout.lane_batched_rollout_cost(*args, engine_impl="pallas",
+                                             **kw)
+    assert cuda_engine.launch_counts["substep"] == 0  # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-8,
+                               atol=1e-8)
+    leg = trollout.lane_batched_rollout_cost(*args, engine_impl="leg", **kw)
+    torch.testing.assert_close(got, leg, rtol=1e-12, atol=1e-12)
+    exact = trollout.lane_batched_rollout_cost(
+        args[0], args[1], trollout.make_cost_fn(tm), *args[3:],
+        engine_impl="pallas", **kw)
+    assert float((exact - got).abs().max()) > 1e-6  # the cost_fn is used
+
+
 @pytest.mark.parametrize("eps", [0.0, 0.02])
 def test_walking_stage_cost_matches_jax(eps):
     jm = jspec.get_planning_model()
@@ -145,10 +191,9 @@ def test_dispatch_refuses_what_is_not_ported():
     cfg = trollout.RolloutConfig(horizon=1, frame_skip=1)
     st, seqs, cmd, prev = _dispatch_args(m)
     cost = trollout.make_cost_fn(m)
-    for impl in ("pallas", "lane"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trollout.lane_batched_rollout_cost(m, cfg, cost, st, seqs, cmd,
-                                               prev, engine_impl=impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trollout.lane_batched_rollout_cost(m, cfg, cost, st, seqs, cmd, prev,
+                                           engine_impl="lane")
     with pytest.raises(ValueError, match="unknown engine_impl"):
         trollout.lane_batched_rollout_cost(m, cfg, cost, st, seqs, cmd, prev,
                                            engine_impl="xla")

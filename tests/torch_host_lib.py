@@ -1,0 +1,35 @@
+"""Build the kernels' device code for the host (g++) and bind it with
+ctypes: shared by the test files that run the kernels' own arithmetic on
+the CPU (``tests/torch_host_rollout.cpp`` holds the entry points)."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import pytest
+
+from quadruped_gym_tpu_torch.ops import _build
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def build(tmp_dir) -> ctypes.CDLL:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("g++ is needed to build the kernel source for the host")
+    out = os.path.join(str(tmp_dir), "host_rollout.so")
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{_build.CSRC}", "-o", out,
+                    os.path.join(HERE, "torch_host_rollout.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(out)
+    for dt in ("f32", "f64"):
+        getattr(lib, f"qg_host_rollout_{dt}").argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_double])
+        getattr(lib, f"qg_host_substeps_{dt}").argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5)
+        getattr(lib, f"qg_model_size_{dt}").restype = ctypes.c_int
+    lib.qg_host_substep_f64.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib
