@@ -8,10 +8,14 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every CUDA kernel from ``quadruped_gym_tpu_torch/ops/csrc``,
-   all nvcc processes at once; build seconds and ptxas registers/spills.
+   all nvcc processes at once; build seconds, ptxas registers/spills, and
+   for each main-path launch its block size, dynamic shared memory and
+   the blocks the runtime says an SM holds.
 3. check: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the tolerances stated below: the fused rollout's
-   costs, and the substep kernel's qpos, qvel, act and all 33 sensors.
+   costs, and the substep kernel's qpos, qvel, act and all 33 sensors;
+   widths the block size does not divide included. A launch the card
+   must refuse (too much shared memory) has to raise.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -150,6 +154,39 @@ def phase_build(rec):
             report = _build.ptxas_report(source, dtype)
             rec[f"ptxas_{source}_{dtype}"] = report
             log(f"ptxas {source} {dtype}:\n{report}")
+    launch_report(rec)
+
+
+def launch_report(rec):
+    """Block size, grid and dynamic shared memory of every main-path
+    launch, with the registers, local bytes and resident blocks per SM
+    the CUDA runtime reports for the built kernel at that shape."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    f32 = torch.float32
+    rec["launch"] = {}
+    for label, source, model, n in (
+            ("B1 planning", cuda_engine.KERNEL_SOURCE, "planning", S_MAIN),
+            ("B1 fast_plant", cuda_engine.KERNEL_SOURCE, "fast_plant", S_MAIN),
+            ("B2 planning", cuda_engine.SUBSTEP_SOURCE, "planning", S_MAIN),
+            ("B2 fast_plant", cuda_engine.SUBSTEP_SOURCE, "fast_plant",
+             S_MAIN),
+            ("B2 env", cuda_engine.SUBSTEP_SOURCE, "fast_plant", N_ENVS)):
+        m = getattr(spec, f"get_{model}_model")()
+        nslot = cuda_engine.model_slots(m)
+        geo = cuda_engine.launch_geometry(nslot, f32, n)
+        info = cuda_engine.kernel_info(source, f32, geo.threads,
+                                       geo.smem_bytes)
+        info.update(grid=geo.grid, nslot=nslot, n=n)
+        rec["launch"][label] = info
+        log(f"launch {label}: n={n}, {nslot} slots a leg, float32: grid "
+            f"{geo.grid} x {geo.threads} threads, {geo.smem_bytes} B dynamic "
+            f"shared a block; {info['registers']} registers and "
+            f"{info['local_bytes']} B local a thread; "
+            f"{info['blocks_per_sm']} blocks = "
+            f"{info['blocks_per_sm'] * geo.threads // 32} warps resident "
+            f"per SM (CUDA occupancy API)")
 
 
 def check_case(rec, label, model, kind, S, H, fs, budget, dtype, tol,
@@ -286,6 +323,10 @@ def phase_check(rec):
                4096, 1, 3, (4, 8), f64, F64_TOL, dp_ranges=dp, seed=3)
     check_case(rec, "f64 fast_plant grounded", "fast_plant", "grounded",
                4096, 1, 5, (4, 8), f64, F64_TOL, seed=4)
+    # S that no block size divides: the last block's spare quads run on a
+    # clamped rollout and must store nothing
+    check_case(rec, "f64 planning ragged S", "planning", "grounded",
+               4001, 2, 2, (4, 8), f64, F64_TOL, seed=7)
     # the main path's width, type and budget; H cut to one control step
     # because grounded rollouts diverge chaotically across bit-different
     # programs over longer horizons
@@ -321,6 +362,37 @@ def phase_check(rec):
                       "fast_plant", "grounded", N_ENVS, ENV_FRAME_SKIP,
                       BUDGET["fast_plant"], f32, F32_TOL, seed=18),
     )
+    check_refused_launch(rec)
+
+
+def check_refused_launch(rec):
+    """A launch the card refuses must raise in Python, and the next good
+    launch must work: ask for more dynamic shared memory than a block may
+    have, through the wrapper's private launch function."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    dev, dt = torch.device("cuda"), torch.float32
+    m = spec.get_planning_model()
+    ls, ctrl = lane_inputs(m, "grounded", 256, np.random.default_rng(19), dt,
+                           dev)
+    too_much = cuda_engine.LaunchGeometry(8, 128, 300 * 1024)
+    before = dict(cuda_engine.launch_counts)
+    try:
+        cuda_engine._launch_substeps(m, ls, ctrl, 1, 2, 4, None, True,
+                                     geometry=too_much)
+    except RuntimeError as e:
+        log(f"check refused launch: raised as it must: {e}")
+    else:
+        raise AssertionError("a launch with 300 KB of dynamic shared memory "
+                             "did not raise")
+    if cuda_engine.launch_counts != before:
+        raise AssertionError("a refused launch was counted")
+    out = cuda_engine.step(m, ls, ctrl, 2, 4)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out.qpos).all()):
+        raise AssertionError("the launch after a refused one failed")
+    rec["refused_launch_raises"] = True
 
 
 def mpc_config(model: str):
@@ -713,6 +785,7 @@ def phase_time_substep(rec, iters=5, seed=8):
         plain = event_ms(lambda: cuda_engine.control_step_reference(
             m, ls, ctrl, fs, it, lsi), 1)
         ops = cuda_engine.substep_flops(m, fs, it, lsi)
+        geo = cuda_engine.launch_geometry(cuda_engine.model_slots(m), dt, B)
         nbytes = 4 * B * (2 * (m.nq + m.nv + m.na) + m.nu + m.nsensordata)
         t_ops, t_bytes = B * ops / PEAK_FP32, nbytes / PEAK_BYTES
         row = {"B": B, "frame_skip": fs, "budget": [it, lsi],
@@ -720,14 +793,21 @@ def phase_time_substep(rec, iters=5, seed=8):
                "plain_ms": plain[0], "ops_per_lane": ops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "blocks": -(-B // 128)}
+               "blocks": geo.grid, "threads": geo.threads}
         rec["substep_timing"][label] = row
         log(f"time substep {label}: {model} {it}/{lsi}, B={B}, frame_skip "
             f"{fs}, float32: control_step {row['ms']:.3f} ms median of "
             f"{iters} (CUDA events); plain version {plain[0]:.1f} ms; bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({ops:.0f} ops "
             f"and {nbytes // B} bytes per lane); {row['blocks']} blocks of "
-            f"128 on 132 SMs; card: {rec['card']}")
+            f"{geo.threads} threads on 132 SMs; card: {rec['card']}")
+    for label in ("planning", "fast_plant"):
+        fused = rec["timing"][label]["ms"] / H_MAIN
+        per_launch = rec["substep_timing"][label]["ms"]
+        log(f"time fused vs per-control-step, {label}: one control step of "
+            f"{S_MAIN} rollouts takes {fused:.3f} ms inside the fused "
+            f"kernel and {per_launch:.3f} ms as one substep-kernel launch; "
+            f"card: {rec['card']}")
     k = rec["substep_timing"]["planning"]["ms"] * H_MAIN / 1e3
     if "custom_plan_s" in rec:
         solve = float(np.median(rec["custom_plan_s"][1:]))

@@ -1,7 +1,7 @@
-// Small-vector algebra for one rollout per thread: vec3, quat, row-major
-// mat3 and spatial 6-vectors [angular; linear]. The operation order
-// follows ops/lane.py so the float64 kernel tracks the plain version to
-// rounding.
+// Small-vector algebra in one thread's registers: vec3, quat, row-major
+// mat3 and spatial 6-vectors [angular; linear], and the sum over a
+// robot's four legs. The operation order follows ops/lane.py so the
+// float64 kernel tracks the plain version to rounding.
 #pragma once
 
 #include <math.h>
@@ -11,7 +11,31 @@ namespace qg {
 
 #define QG_DEV __device__ __forceinline__
 
-template <typename T> QG_DEV T sum4(T a, T b, T c, T d) { return (a + b) + (c + d); }
+// On the card a robot is carried by an aligned quad of a warp, one thread
+// per leg (lane & 3 is the leg). quad_sum adds a value over the quad by
+// two butterfly steps; every lane gets (a0 + a1) + (a2 + a3) bit for bit,
+// because IEEE addition commutes. All 32 lanes of the warp must call it
+// together: the kernels keep every thread alive and mask only the stores.
+// A host build (QG_HOST) supplies its own quad_sum before this header.
+#ifndef QG_HOST
+template <typename T> QG_DEV T quad_sum(T v) {
+  v = v + __shfl_xor_sync(0xffffffffu, v, 1);
+  v = v + __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+#endif
+
+// Sum of term(j) over the four legs of a robot, for a thread that owns NL
+// of them: all four (one thread per robot: the host build) or one (a quad
+// per robot: the card). Both forms add in the order (0 + 1) + (2 + 3).
+template <int NL, typename T, typename F> QG_DEV T leg_sum(F&& term) {
+  static_assert(NL == 4 || NL == 1, "a thread owns four legs or one");
+  if constexpr (NL == 4) {
+    return (term(0) + term(1)) + (term(2) + term(3));
+  } else {
+    return quad_sum<T>(term(0));
+  }
+}
 
 template <typename T> QG_DEV T dot3(const T a[3], const T b[3]) {
   return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];

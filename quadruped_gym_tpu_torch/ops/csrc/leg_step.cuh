@@ -1,11 +1,22 @@
-// One leg-batched physics substep (mj_step semantics) for ONE rollout,
-// as a __device__ function: the math of ops/leg_engine.py::_step_impl with
-// the contact selection of _collide_loop, written for one thread.
+// One leg-batched physics substep (mj_step semantics) of ONE robot, as
+// __device__ functions: the math of ops/leg_engine.py::_step_impl with
+// the contact selection of _collide_loop.
 //
-// Indexing: level k in {hip, knee, ankle}, leg l in 0..3; dof 6+3l+k,
-// qpos 7+3l+k, actuator 3l+k. Everything spatial is relative to the base
-// position (kin.origin); world positions are formed only where the
-// reference forms them (heights against the ground plane, terrain xy).
+// The leg axis is the parallel axis. Every function here is written for a
+// thread that owns NL of the robot's four legs, legs leg0 .. leg0 + NL - 1:
+// NL = 1 on the card, where an aligned quad of a warp carries a robot and
+// thread (lane & 3) owns that leg, and NL = 4 where one thread carries a
+// whole robot (the host build of the tests). A thread keeps its own legs'
+// slice of every leg-indexed quantity and a replica of the free-base
+// quantities; the replicas stay bit-identical because the only cross-leg
+// terms are leg_sum() (lane_math.cuh), which gives every thread the same
+// bits. Every thread of a quad takes the same branches around a leg_sum.
+//
+// Indexing: level k in {hip, knee, ankle}, owned leg j (robot leg
+// leg0 + j); dof 6+3l+k, qpos 7+3l+k, actuator 3l+k. Everything spatial is
+// relative to the base position (kin.origin); world positions are formed
+// only where the reference forms them (heights against the ground plane,
+// terrain xy).
 #pragma once
 
 #include "lane_math.cuh"
@@ -48,6 +59,16 @@ template <typename T> QG_DEV Domain<T> load_domain(const DomainLanes<T>& lanes, 
   return dp;
 }
 
+// One thread's share of a robot's state: the free base (replicated in
+// every thread of the robot) and the owned legs' joints.
+template <int NL, typename T> struct LegState {
+  T qb[7];      // base position and quaternion
+  T vf[6];      // base qvel (linear, then angular in the base frame)
+  T q[3][NL];   // joint positions by level
+  T qv[3][NL];
+  T act[3][NL];
+};
+
 // the sensor readings the walking stage cost needs
 template <typename T> struct CostSensors {
   T vel[2];    // velocimeter x, y
@@ -56,31 +77,35 @@ template <typename T> struct CostSensors {
   T pos_z;     // frame position z
 };
 
-// mass matrix blocks: Mff[i][j] (j <= i), Mfl[i][k][l], Mll[ki][kj][l]
-template <typename T> struct Blocks {
+// mass matrix blocks: Mff[i][j] (j <= i), Mfl[i][k][leg], Mll[ki][kj][leg]
+template <int NL, typename T> struct Blocks {
   T ff[6][6];
-  T fl[6][3][4];
-  T ll[3][3][4];
+  T fl[6][3][NL];
+  T ll[3][3][NL];
 };
 
-template <typename T> struct Factor {
+template <int NL, typename T> struct Factor {
   T dinv_f[6];
-  T dinv_l[3][4];
+  T dinv_l[3][NL];
   T lff[6][6];
-  T lfl[3][6][4];
-  T lll[3][3][4];
+  T lfl[3][6][NL];
+  T lll[3][3][NL];
 };
 
-template <typename T> QG_DEV void ldl_factor(const Blocks<T>& M, Factor<T>& F) {
-  Blocks<T> H = M;
+// The leg levels are eliminated leg by leg; what they take from the free
+// block is gathered per leg over the three levels and added over the legs
+// once per entry (21 leg sums, not 63).
+template <int NL, typename T> QG_DEV void ldl_factor(const Blocks<NL, T>& M, Factor<NL, T>& F) {
+  Blocks<NL, T> H = M;
+  T schur[6][6][NL];  // [fi][j <= fi][leg]
 #pragma unroll
   for (int k = NLEV - 1; k >= 0; --k) {
 #pragma unroll
-    for (int l = 0; l < 4; ++l) F.dinv_l[k][l] = T(1) / H.ll[k][k][l];
+    for (int l = 0; l < NL; ++l) F.dinv_l[k][l] = T(1) / H.ll[k][k][l];
 #pragma unroll
     for (int i = k - 1; i >= 0; --i) {
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
+      for (int l = 0; l < NL; ++l) {
         const T a = H.ll[k][i][l] * F.dinv_l[k][l];
         for (int j = i; j >= 0; --j) H.ll[i][j][l] = H.ll[i][j][l] - a * H.ll[k][j][l];
         for (int jf = 0; jf < 6; ++jf) H.fl[jf][i][l] = H.fl[jf][i][l] - a * H.fl[jf][k][l];
@@ -88,18 +113,23 @@ template <typename T> QG_DEV void ldl_factor(const Blocks<T>& M, Factor<T>& F) {
       }
     }
 #pragma unroll
-    for (int fi = 5; fi >= 0; --fi) {
-      T a[4];
+    for (int fi = 5; fi >= 0; --fi)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) a[l] = H.fl[fi][k][l] * F.dinv_l[k][l];
+      for (int l = 0; l < NL; ++l) {
+        const T a = H.fl[fi][k][l] * F.dinv_l[k][l];
 #pragma unroll
-      for (int j = fi; j >= 0; --j)
-        H.ff[fi][j] = H.ff[fi][j] - sum4(a[0] * H.fl[j][k][0], a[1] * H.fl[j][k][1],
-                                         a[2] * H.fl[j][k][2], a[3] * H.fl[j][k][3]);
-#pragma unroll
-      for (int l = 0; l < 4; ++l) F.lfl[k][fi][l] = a[l];
-    }
+        for (int j = fi; j >= 0; --j) {
+          const T t = a * H.fl[j][k][l];
+          schur[fi][j][l] = (k == NLEV - 1) ? t : schur[fi][j][l] + t;
+        }
+        F.lfl[k][fi][l] = a;
+      }
   }
+#pragma unroll
+  for (int fi = 5; fi >= 0; --fi)
+#pragma unroll
+    for (int j = fi; j >= 0; --j)
+      H.ff[fi][j] = H.ff[fi][j] - leg_sum<NL, T>([&](int l) { return schur[fi][j][l]; });
 #pragma unroll
   for (int k = 5; k >= 0; --k) {
     F.dinv_f[k] = T(1) / H.ff[k][k];
@@ -113,26 +143,28 @@ template <typename T> QG_DEV void ldl_factor(const Blocks<T>& M, Factor<T>& F) {
   }
 }
 
-template <typename T>
-QG_DEV void ldl_solve(const Factor<T>& F, const T bf[6], const T bl[3][4], T xf[6], T xl[3][4]) {
-  T wf[6], wl[3][4];
+template <int NL, typename T>
+QG_DEV void ldl_solve(const Factor<NL, T>& F, const T bf[6], const T bl[3][NL], T xf[6],
+                      T xl[3][NL]) {
+  T wf[6], wl[3][NL];
 #pragma unroll
   for (int i = 0; i < 6; ++i) wf[i] = bf[i];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) wl[k][l] = bl[k][l];
+    for (int l = 0; l < NL; ++l) wl[k][l] = bl[k][l];
 #pragma unroll
-  for (int k = NLEV - 1; k >= 0; --k) {
+  for (int k = NLEV - 1; k >= 0; --k)
 #pragma unroll
     for (int i = k - 1; i >= 0; --i)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) wl[i][l] = wl[i][l] - F.lll[k][i][l] * wl[k][l];
+      for (int l = 0; l < NL; ++l) wl[i][l] = wl[i][l] - F.lll[k][i][l] * wl[k][l];
+  // each leg's three levels first, then one sum over the legs per entry
 #pragma unroll
-    for (int fi = 5; fi >= 0; --fi)
-      wf[fi] = wf[fi] - sum4(F.lfl[k][fi][0] * wl[k][0], F.lfl[k][fi][1] * wl[k][1],
-                             F.lfl[k][fi][2] * wl[k][2], F.lfl[k][fi][3] * wl[k][3]);
-  }
+  for (int fi = 5; fi >= 0; --fi)
+    wf[fi] = wf[fi] - leg_sum<NL, T>([&](int l) {
+      return (F.lfl[2][fi][l] * wl[2][l] + F.lfl[1][fi][l] * wl[1][l]) + F.lfl[0][fi][l] * wl[0][l];
+    });
 #pragma unroll
   for (int k = 5; k >= 0; --k)
 #pragma unroll
@@ -146,7 +178,7 @@ QG_DEV void ldl_solve(const Factor<T>& F, const T bf[6], const T bl[3][4], T xf[
 #pragma unroll
   for (int k = 0; k < NLEV; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
+    for (int l = 0; l < NL; ++l) {
       T acc = wl[k][l] * F.dinv_l[k][l];
 #pragma unroll
       for (int i = k - 1; i >= 0; --i) acc = acc - F.lll[k][i][l] * xl[i][l];
@@ -156,24 +188,24 @@ QG_DEV void ldl_solve(const Factor<T>& F, const T bf[6], const T bl[3][4], T xf[
     }
 }
 
-template <typename T>
-QG_DEV void sym_matvec(const Blocks<T>& M, const T xf[6], const T xl[3][4], T yf[6], T yl[3][4]) {
+template <int NL, typename T>
+QG_DEV void sym_matvec(const Blocks<NL, T>& M, const T xf[6], const T xl[3][NL], T yf[6],
+                       T yl[3][NL]) {
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     T acc = M.ff[i][0] * xf[0];  // Mff[max(i,0)][0]
 #pragma unroll
     for (int j = 1; j < 6; ++j) acc = acc + (i >= j ? M.ff[i][j] : M.ff[j][i]) * xf[j];
-#pragma unroll
-    for (int k = 0; k < NLEV; ++k)
-      acc = acc + sum4(M.fl[i][k][0] * xl[k][0], M.fl[i][k][1] * xl[k][1],
-                       M.fl[i][k][2] * xl[k][2], M.fl[i][k][3] * xl[k][3]);
+    acc = acc + leg_sum<NL, T>([&](int l) {
+      return (M.fl[i][0][l] * xl[0][l] + M.fl[i][1][l] * xl[1][l]) + M.fl[i][2][l] * xl[2][l];
+    });
     yf[i] = acc;
   }
 #pragma unroll
   for (int ki = 0; ki < NLEV; ++ki)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      T acc = (ki >= 0 ? M.ll[ki][0][l] : M.ll[0][ki][l]) * xl[0][l];
+    for (int l = 0; l < NL; ++l) {
+      T acc = M.ll[ki][0][l] * xl[0][l];
 #pragma unroll
       for (int kj = 1; kj < NLEV; ++kj)
         acc = acc + (ki >= kj ? M.ll[ki][kj][l] : M.ll[kj][ki][l]) * xl[kj][l];
@@ -183,204 +215,254 @@ QG_DEV void sym_matvec(const Blocks<T>& M, const T xf[6], const T xl[3][4], T yf
     }
 }
 
-// Contact rows of one substep. Slot s (group-major, then slot index) on
-// leg l has a Jacobian J[dir][dof] (dir n, t1, t2; dof 0-5 free, 6+k leg
-// level k, zero below the contact body), 4 pyramid facets with reference
-// accelerations aref, and one weight D shared by the facets.
-template <typename T> struct Rows {
-  int nslot;
-  T lim_sign[3][4];
-  T lim_aref[3][4];
-  T lim_D[3][4];
-  T J[MAX_SLOTS][4][3][9];
-  T mu[MAX_SLOTS];
-  T aref[MAX_SLOTS][4][4];
-  T D[MAX_SLOTS][4];
+// Values a contact slot keeps per leg for the Newton solve: the Jacobian
+// J[dir][dof] (dir n, t1, t2; dof 0-5 free, 6+k leg level k, zero below
+// the contact body), the 4 pyramid facets' reference accelerations, the
+// weight D the facets share, and the solve's two work vectors (J x - aref
+// and J dx per facet).
+constexpr int ROW_J = 0;
+constexpr int ROW_AREF = 27;
+constexpr int ROW_D = 31;
+constexpr int ROW_JAR = 32;
+constexpr int ROW_JD = 36;
+constexpr int ROW_VALS = 40;
+
+// Where a thread keeps the rows of its legs' slots: value v of slot s of
+// owned leg l is p[((s * ROW_VALS + v) * NL + l) * stride]. On the card p
+// is this thread's column of the block's dynamic shared memory and stride
+// the block size, so a warp's 32 accesses to one value fall on 32
+// different banks; only the model's own slots (sum of grp_nslot) are laid
+// out. Slot indices are run-time values, which is why the rows are not in
+// registers.
+template <int NL, typename T> struct RowStore {
+  T* p;
+  size_t stride;
+  QG_DEV T& at(int s, int v, int l) const {
+    return p[((size_t)(s * ROW_VALS + v) * NL + l) * stride];
+  }
 };
 
-// J x over all rows: lim (3, 4) and slot facets (nslot, 4 legs, 4)
-template <typename T>
-QG_DEV void rows_matvec(const Rows<T>& R, const T xf[6], const T xl[3][4], T jl[3][4],
-                        T js[][4][4]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) jl[k][l] = R.lim_sign[k][l] * xl[k][l];
-  for (int s = 0; s < R.nslot; ++s) {
-    const T mu = R.mu[s];
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const T(&J)[3][9] = R.J[s][l];
-      T v[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        T acc = J[d][0] * xf[0];
-#pragma unroll
-        for (int i = 1; i < 6; ++i) acc = acc + J[d][i] * xf[i];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) acc = acc + J[d][6 + k] * xl[k][l];
-        v[d] = acc;
-      }
-      const T mv1 = mu * v[1], mv2 = mu * v[2];
-      js[s][l][0] = v[0] + mv1;
-      js[s][l][1] = v[0] - mv1;
-      js[s][l][2] = v[0] + mv2;
-      js[s][l][3] = v[0] - mv2;
-    }
+// Contact and joint-limit rows of one substep. Slots are numbered
+// group-major, then by slot index; a slot's friction is its group's.
+template <int NL, typename T> struct Rows {
+  const LegModel<T>* M;
+  bool has_friction;
+  T friction;
+  T lim_sign[3][NL];
+  T lim_aref[3][NL];
+  T lim_D[3][NL];
+  RowStore<NL, T> st;
+  QG_DEV T mu(int g) const { return has_friction ? friction : M->grp_friction[g]; }
+};
+
+// f(s, mu) for every slot s of the model, in order
+template <int NL, typename T, typename F> QG_DEV void for_each_slot(const Rows<NL, T>& R, F&& f) {
+  int s = 0;
+  for (int g = 0; g < R.M->ngroup; ++g) {
+    const T mu = R.mu(g);
+    for (int i = 0; i < R.M->grp_nslot[g]; ++i, ++s) f(s, mu);
   }
 }
 
-// Jᵀ y
-template <typename T>
-QG_DEV void rows_tmatvec(const Rows<T>& R, const T yl_in[3][4], const T ys[][4][4], T yf[6],
-                         T yl[3][4]) {
-#pragma unroll
-  for (int i = 0; i < 6; ++i) yf[i] = T(0);
+template <typename T> QG_DEV T active_weight(T jar, T D) {
+  return (jar < T(0) && D > T(0)) ? D : T(0);
+}
+
+// J x over all rows: lim into jl (3, NL), slot facets into row value
+// ``out`` (ROW_JAR or ROW_JD), less aref when ``sub_aref``
+template <int NL, typename T>
+QG_DEV void rows_matvec(const Rows<NL, T>& R, const T xf[6], const T xl[3][NL], T jl[3][NL],
+                        int out, bool sub_aref) {
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) yl[k][l] = R.lim_sign[k][l] * yl_in[k][l];
-  for (int s = 0; s < R.nslot; ++s) {
-    const T mu = R.mu[s];
-    T c[6][4];
+    for (int l = 0; l < NL; ++l) jl[k][l] = R.lim_sign[k][l] * xl[k][l];
+  for_each_slot(R, [&](int s, T mu) {
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const T(&J)[3][9] = R.J[s][l];
-      const T* y = ys[s][l];
+    for (int l = 0; l < NL; ++l) {
+      T v[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        T acc = R.st.at(s, ROW_J + 9 * d, l) * xf[0];
+#pragma unroll
+        for (int i = 1; i < 6; ++i) acc = acc + R.st.at(s, ROW_J + 9 * d + i, l) * xf[i];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) acc = acc + R.st.at(s, ROW_J + 9 * d + 6 + k, l) * xl[k][l];
+        v[d] = acc;
+      }
+      const T mv1 = mu * v[1], mv2 = mu * v[2];
+      T js[4] = {v[0] + mv1, v[0] - mv1, v[0] + mv2, v[0] - mv2};
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        if (sub_aref) js[f] = js[f] - R.st.at(s, ROW_AREF + f, l);
+        R.st.at(s, out + f, l) = js[f];
+      }
+    }
+  });
+}
+
+// Jᵀ y with y = w * jar on every row, w the active weight of jar. Each
+// leg gathers its slots' free-dof terms; the legs are added once.
+template <int NL, typename T>
+QG_DEV void rows_tmatvec_active(const Rows<NL, T>& R, const T yl_in[3][NL], T yf[6],
+                                T yl[3][NL]) {
+  T c[6][NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) c[i][l] = T(0);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) yl[k][l] = R.lim_sign[k][l] * yl_in[k][l];
+  }
+  for_each_slot(R, [&](int s, T mu) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const T D = R.st.at(s, ROW_D, l);
+      T y[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const T jar = R.st.at(s, ROW_JAR + f, l);
+        y[f] = active_weight(jar, D) * jar;
+      }
       const T yn = ((y[0] + y[1]) + y[2]) + y[3];
       const T y1 = mu * (y[0] - y[1]);
       const T y2 = mu * (y[2] - y[3]);
 #pragma unroll
-      for (int i = 0; i < 6; ++i) c[i][l] = J[0][i] * yn + (J[1][i] * y1 + J[2][i] * y2);
+      for (int i = 0; i < 6; ++i)
+        c[i][l] = c[i][l] + (R.st.at(s, ROW_J + i, l) * yn
+                             + (R.st.at(s, ROW_J + 9 + i, l) * y1
+                                + R.st.at(s, ROW_J + 18 + i, l) * y2));
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        yl[k][l] = yl[k][l] + (J[0][6 + k] * yn + (J[1][6 + k] * y1 + J[2][6 + k] * y2));
+        yl[k][l] = yl[k][l] + (R.st.at(s, ROW_J + 6 + k, l) * yn
+                               + (R.st.at(s, ROW_J + 15 + k, l) * y1
+                                  + R.st.at(s, ROW_J + 24 + k, l) * y2));
     }
+  });
 #pragma unroll
-    for (int i = 0; i < 6; ++i) yf[i] = yf[i] + sum4(c[i][0], c[i][1], c[i][2], c[i][3]);
-  }
+  for (int i = 0; i < 6; ++i) yf[i] = leg_sum<NL, T>([&](int l) { return c[i][l]; });
 }
 
-// H = M + Jᵀ diag(w) J on the block pattern
-template <typename T>
-QG_DEV void add_jwj(const Blocks<T>& M, const Rows<T>& R, const T wl[3][4], const T ws[][4][4],
-                    Blocks<T>& H) {
+// H = M + Jᵀ diag(w) J on the block pattern, w the active weights. Each
+// leg gathers its slots' share of the free block; the legs are added once
+// per entry.
+template <int NL, typename T>
+QG_DEV void add_jwj(const Blocks<NL, T>& M, const Rows<NL, T>& R, const T wl[3][NL],
+                    Blocks<NL, T>& H) {
   H = M;
+  T ffl[6][6][NL];  // each leg's share of the free block, [i][j <= i][leg]
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
+  for (int l = 0; l < NL; ++l) {
 #pragma unroll
-    for (int l = 0; l < 4; ++l) H.ll[k][k][l] = H.ll[k][k][l] + wl[k][l];
-  for (int s = 0; s < R.nslot; ++s) {
-    const T mu = R.mu[s];
-    T cnn[4], c11[4], c22[4], cn1[4], cn2[4];
+    for (int k = 0; k < 3; ++k) H.ll[k][k][l] = H.ll[k][k][l] + wl[k][l];
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const T* w = ws[s][l];
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) ffl[i][j][l] = T(0);
+  }
+  for_each_slot(R, [&](int s, T mu) {
+    T cnn[NL], c11[NL], c22[NL], cn1[NL], cn2[NL], J[NL][3][9];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const T D = R.st.at(s, ROW_D, l);
+      T w[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) w[f] = active_weight(R.st.at(s, ROW_JAR + f, l), D);
       cnn[l] = ((w[0] + w[1]) + w[2]) + w[3];
       c11[l] = mu * mu * (w[0] + w[1]);
       c22[l] = mu * mu * (w[2] + w[3]);
       cn1[l] = mu * (w[0] - w[1]);
       cn2[l] = mu * (w[2] - w[3]);
+#pragma unroll
+      for (int e = 0; e < 3; ++e)
+#pragma unroll
+        for (int d = 0; d < 9; ++d) J[l][e][d] = R.st.at(s, ROW_J + 9 * e + d, l);
     }
     auto pairval = [&](int l, int a, int b) -> T {
-      const T(&J)[3][9] = R.J[s][l];
-      const T ni = J[0][a], t1i = J[1][a], t2i = J[2][a];
-      const T nj = J[0][b], t1j = J[1][b], t2j = J[2][b];
+      const T ni = J[l][0][a], t1i = J[l][1][a], t2i = J[l][2][a];
+      const T nj = J[l][0][b], t1j = J[l][1][b], t2j = J[l][2][b];
       return (((cnn[l] * ni * nj + c11[l] * t1i * t1j) + c22[l] * t2i * t2j)
               + cn1[l] * (ni * t1j + t1i * nj)) + cn2[l] * (ni * t2j + t2i * nj);
     };
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
 #pragma unroll
-      for (int j = 0; j <= i; ++j)
-        H.ff[i][j] = H.ff[i][j] + sum4(pairval(0, i, j), pairval(1, i, j), pairval(2, i, j),
-                                       pairval(3, i, j));
+      for (int l = 0; l < NL; ++l) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+        for (int j = 0; j <= i; ++j) ffl[i][j][l] = ffl[i][j][l] + pairval(l, i, j);
 #pragma unroll
-        for (int l = 0; l < 4; ++l) H.fl[i][k][l] = H.fl[i][k][l] + pairval(l, i, 6 + k);
+        for (int k = 0; k < 3; ++k) H.fl[i][k][l] = H.fl[i][k][l] + pairval(l, i, 6 + k);
+      }
     }
 #pragma unroll
     for (int ki = 0; ki < 3; ++ki)
 #pragma unroll
       for (int kj = 0; kj <= ki; ++kj)
 #pragma unroll
-        for (int l = 0; l < 4; ++l) H.ll[ki][kj][l] = H.ll[ki][kj][l] + pairval(l, 6 + ki, 6 + kj);
-  }
+        for (int l = 0; l < NL; ++l) H.ll[ki][kj][l] = H.ll[ki][kj][l] + pairval(l, 6 + ki, 6 + kj);
+  });
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      H.ff[i][j] = H.ff[i][j] + leg_sum<NL, T>([&](int l) { return ffl[i][j][l]; });
 }
 
-template <typename T> QG_DEV T active_weight(T jar, T D) { return (jar < T(0) && D > T(0)) ? D : T(0); }
-
 // primal Newton on the constraint rows; x (in: unconstrained qacc) -> qacc
-template <typename T>
-QG_DEV void newton_solve(const Blocks<T>& M, const Rows<T>& R, const T qaf[6], const T qal[3][4],
-                         int iterations, int ls_iterations, T xf[6], T xl[3][4]) {
-  T jarl[3][4], jars[MAX_SLOTS][4][4];
-  T jdl[3][4], jds[MAX_SLOTS][4][4];
-  T wl[3][4], ws[MAX_SLOTS][4][4];
+template <int NL, typename T>
+QG_DEV void newton_solve(const Blocks<NL, T>& M, const Rows<NL, T>& R, const T qaf[6],
+                         const T qal[3][NL], int iterations, int ls_iterations, T xf[6],
+                         T xl[3][NL]) {
+  T jarl[3][NL], jdl[3][NL], wl[3][NL];
 #pragma unroll
   for (int i = 0; i < 6; ++i) xf[i] = qaf[i];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) xl[k][l] = qal[k][l];
-  const int ns = R.nslot;
+    for (int l = 0; l < NL; ++l) xl[k][l] = qal[k][l];
   for (int it = 0; it < iterations; ++it) {
-    rows_matvec(R, xf, xl, jarl, jars);
+    rows_matvec(R, xf, xl, jarl, ROW_JAR, true);
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
+      for (int l = 0; l < NL; ++l) {
         jarl[k][l] = jarl[k][l] - R.lim_aref[k][l];
         wl[k][l] = active_weight(jarl[k][l], R.lim_D[k][l]);
       }
-    for (int s = 0; s < ns; ++s)
-#pragma unroll
-      for (int l = 0; l < 4; ++l)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          jars[s][l][f] = jars[s][l][f] - R.aref[s][l][f];
-          ws[s][l][f] = active_weight(jars[s][l][f], R.D[s][l]);
-        }
     // gradient: M (x - qa) + Jᵀ (w * jar)
-    T df[6], dl[3][4], gsf[6], gsl[3][4];
+    T df[6], dl[3][NL], gsf[6], gsl[3][NL];
 #pragma unroll
     for (int i = 0; i < 6; ++i) df[i] = xf[i] - qaf[i];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) dl[k][l] = xl[k][l] - qal[k][l];
+      for (int l = 0; l < NL; ++l) dl[k][l] = xl[k][l] - qal[k][l];
     sym_matvec(M, df, dl, gsf, gsl);
     {
-      T yl[3][4];
+      T yl[3][NL];
 #pragma unroll
       for (int k = 0; k < 3; ++k)
 #pragma unroll
-        for (int l = 0; l < 4; ++l) yl[k][l] = wl[k][l] * jarl[k][l];
-      for (int s = 0; s < ns; ++s)
-#pragma unroll
-        for (int l = 0; l < 4; ++l)
-#pragma unroll
-          for (int f = 0; f < 4; ++f) jds[s][l][f] = ws[s][l][f] * jars[s][l][f];
-      T jtf[6], jtl[3][4];
-      rows_tmatvec(R, yl, jds, jtf, jtl);
+        for (int l = 0; l < NL; ++l) yl[k][l] = wl[k][l] * jarl[k][l];
+      T jtf[6], jtl[3][NL];
+      rows_tmatvec_active(R, yl, jtf, jtl);
 #pragma unroll
       for (int i = 0; i < 6; ++i) df[i] = -(gsf[i] + jtf[i]);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
 #pragma unroll
-        for (int l = 0; l < 4; ++l) dl[k][l] = -(gsl[k][l] + jtl[k][l]);
+        for (int l = 0; l < NL; ++l) dl[k][l] = -(gsl[k][l] + jtl[k][l]);
     }
-    T dxf[6], dxl[3][4];
+    T dxf[6], dxl[3][NL];
     {
-      Blocks<T> H;
-      add_jwj(M, R, wl, ws, H);
-      Factor<T> F;
+      Blocks<NL, T> H;
+      add_jwj(M, R, wl, H);
+      Factor<NL, T> F;
       ldl_factor(H, F);
       ldl_solve(F, df, dl, dxf, dxl);
     }
-    rows_matvec(R, dxf, dxl, jdl, jds);
-    T mdf[6], mdl[3][4];
+    rows_matvec(R, dxf, dxl, jdl, ROW_JD, false);
+    T mdf[6], mdl[3][NL];
     sym_matvec(M, dxf, dxl, mdf, mdl);
     T g0 = dxf[0] * gsf[0], h0 = dxf[0] * mdf[0];
 #pragma unroll
@@ -388,42 +470,45 @@ QG_DEV void newton_solve(const Blocks<T>& M, const Rows<T>& R, const T qaf[6], c
       g0 = g0 + dxf[i] * gsf[i];
       h0 = h0 + dxf[i] * mdf[i];
     }
-    T gl = T(0), hl = T(0);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      gl = gl + sum4(dxl[k][0] * gsl[k][0], dxl[k][1] * gsl[k][1], dxl[k][2] * gsl[k][2],
-                     dxl[k][3] * gsl[k][3]);
-      hl = hl + sum4(dxl[k][0] * mdl[k][0], dxl[k][1] * mdl[k][1], dxl[k][2] * mdl[k][2],
-                     dxl[k][3] * mdl[k][3]);
-    }
-    g0 = g0 + gl;
-    h0 = h0 + hl;
-    // exact line search along dx: a few 1-D Newton steps, t in [0, 4]
+    g0 = g0 + leg_sum<NL, T>([&](int l) {
+      return (dxl[0][l] * gsl[0][l] + dxl[1][l] * gsl[1][l]) + dxl[2][l] * gsl[2][l];
+    });
+    h0 = h0 + leg_sum<NL, T>([&](int l) {
+      return (dxl[0][l] * mdl[0][l] + dxl[1][l] * mdl[1][l]) + dxl[2][l] * mdl[2][l];
+    });
+    // exact line search along dx: a few 1-D Newton steps, t in [0, 4];
+    // each leg sums its own rows, then the legs are added
     T t = T(1);
     for (int li = 0; li < ls_iterations; ++li) {
-      T dphi = T(0), ddphi = T(0);
+      T dphi_l[NL], ddphi_l[NL];
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int l = 0; l < NL; ++l) {
+        dphi_l[l] = T(0);
+        ddphi_l[l] = T(0);
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
+        for (int k = 0; k < 3; ++k) {
           const T jt = jarl[k][l] + t * jdl[k][l];
           const T w = active_weight(jt, R.lim_D[k][l]);
-          dphi = dphi + w * jt * jdl[k][l];
-          ddphi = ddphi + w * jdl[k][l] * jdl[k][l];
+          dphi_l[l] = dphi_l[l] + w * jt * jdl[k][l];
+          ddphi_l[l] = ddphi_l[l] + w * jdl[k][l] * jdl[k][l];
         }
-      for (int s = 0; s < ns; ++s)
+      }
+      for_each_slot(R, [&](int s, T) {
 #pragma unroll
-        for (int l = 0; l < 4; ++l)
+        for (int l = 0; l < NL; ++l) {
+          const T D = R.st.at(s, ROW_D, l);
 #pragma unroll
           for (int f = 0; f < 4; ++f) {
-            const T jd = jds[s][l][f];
-            const T jt = jars[s][l][f] + t * jd;
-            const T w = active_weight(jt, R.D[s][l]);
-            dphi = dphi + w * jt * jd;
-            ddphi = ddphi + w * jd * jd;
+            const T jd = R.st.at(s, ROW_JD + f, l);
+            const T jt = R.st.at(s, ROW_JAR + f, l) + t * jd;
+            const T w = active_weight(jt, D);
+            dphi_l[l] = dphi_l[l] + w * jt * jd;
+            ddphi_l[l] = ddphi_l[l] + w * jd * jd;
           }
-      dphi = (g0 + t * h0) + dphi;
-      ddphi = h0 + ddphi;
+        }
+      });
+      const T dphi = (g0 + t * h0) + leg_sum<NL, T>([&](int l) { return dphi_l[l]; });
+      const T ddphi = h0 + leg_sum<NL, T>([&](int l) { return ddphi_l[l]; });
       t = fmin(fmax(t - dphi / fmax(ddphi, T(1e-30)), T(0)), T(4));
     }
 #pragma unroll
@@ -431,7 +516,7 @@ QG_DEV void newton_solve(const Blocks<T>& M, const Rows<T>& R, const T qaf[6], c
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) xl[k][l] = xl[k][l] + t * dxl[k][l];
+      for (int l = 0; l < NL; ++l) xl[k][l] = xl[k][l] + t * dxl[k][l];
   }
 }
 

@@ -1,5 +1,6 @@
 // One whole substep: FK -> CRBA -> RNE -> actuation -> LDLᵀ -> plane
-// contacts (_collide_loop) -> primal Newton -> sensors -> implicitfast.
+// contacts (_collide_loop) -> primal Newton -> sensors -> implicitfast,
+// for a thread that owns NL legs of the robot (leg_step.cuh).
 // Included by leg_step.cuh after the linear-algebra helpers.
 #pragma once
 
@@ -31,40 +32,46 @@ QG_DEV void terrain_plane(const LegModel<T>& M, const Domain<T>& dp, T x, T y, T
   off = (fr[0] * x + fr[1] * y) + fr[2] * z;
 }
 
-// One substep in place on (q, qv, act) under ctrl. When ``sens`` is not
-// null the pre-integration cost sensors are written there. With FULL, and
-// when ``full`` is not null, every sensor of the model's table is written
-// to full[adr * stride] (pre-integration values too); without FULL that
-// code is not compiled, so the fused rollout pays nothing for it.
-template <bool FULL, typename T>
-QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18],
-                             T act[12], const T ctrl[12], int iterations, int ls_iterations,
-                             CostSensors<T>* sens, T* full, size_t stride) {
+// One substep in place on the thread's share ``st`` of the robot's state,
+// under the owned legs' controls. ``rows`` is where the contact rows of
+// the owned legs live during the solve. When ``sens`` is not null the
+// pre-integration cost sensors are written there (every thread of the
+// robot gets the same values). With FULL, and when ``full`` is not null,
+// every sensor of the model's table is written to full[adr * stride]
+// (pre-integration values too): a joint position by the thread that owns
+// the joint's leg, the base-site sensors by the thread that owns leg 0.
+// Without FULL that code is not compiled, so the fused rollout pays
+// nothing for it.
+template <int NL, bool FULL, typename T>
+QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0,
+                             LegState<NL, T>& st, const T ctrl[3][NL], int iterations,
+                             int ls_iterations, RowStore<NL, T> rows, CostSensors<T>* sens,
+                             T* full, size_t stride) {
   const T h = M.timestep;
-  T ql[3][4], qvl[3][4], al[3][4], cl[3][4];
+  T (&ql)[3][NL] = st.q;
+  T (&qvl)[3][NL] = st.qv;
+  T (&al)[3][NL] = st.act;
+  const T (&qv)[6] = st.vf;
+  T cl[3][NL];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      ql[k][l] = q[7 + 3 * l + k];
-      qvl[k][l] = qv[6 + 3 * l + k];
-      al[k][l] = act[3 * l + k];
-      cl[k][l] = fmin(fmax(ctrl[3 * l + k], M.lev_ctrlrange[k][0]), M.lev_ctrlrange[k][1]);
-    }
+    for (int l = 0; l < NL; ++l)
+      cl[k][l] = fmin(fmax(ctrl[k][l], M.lev_ctrlrange[k][0]), M.lev_ctrlrange[k][1]);
 
   // ---- forward kinematics ----
-  const T org[3] = {q[0], q[1], q[2]};  // kin.origin = base position
-  T bq[4] = {q[3], q[4], q[5], q[6]};
+  const T org[3] = {st.qb[0], st.qb[1], st.qb[2]};  // kin.origin = base position
+  T bq[4] = {st.qb[3], st.qb[4], st.qb[5], st.qb[6]};
   quat_normalize(bq);
   T bmat[9];
   quat_to_mat(bq, bmat);
-  T lpos[3][4][3], lmat[3][4][9];
+  T lpos[3][NL][3], lmat[3][NL][9];
 #pragma unroll
-  for (int l = 0; l < 4; ++l) {
+  for (int l = 0; l < NL; ++l) {
     T pos[3], quat[4], tmp[3], tq[4];
-    quat_rotate(bq, M.hip_pos[l], tmp);
+    quat_rotate(bq, M.hip_pos[leg0 + l], tmp);
     for (int i = 0; i < 3; ++i) pos[i] = org[i] + tmp[i];
-    quat_mul(bq, M.hip_quat[l], quat);
+    quat_mul(bq, M.hip_quat[leg0 + l], quat);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       if (k > 0) {
@@ -93,11 +100,11 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
   T ax[3][3];  // ax[k] = bmat column k
 #pragma unroll
   for (int k = 0; k < 3; ++k) { ax[k][0] = bmat[k]; ax[k][1] = bmat[3 + k]; ax[k][2] = bmat[6 + k]; }
-  T Sl[3][4][6];
+  T Sl[3][NL][6];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
+    for (int l = 0; l < NL; ++l) {
       T tmp[3], anc[3];
       mat_vec(lmat[k][l], M.lev_jnt_pos[k], tmp);
       for (int i = 0; i < 3; ++i) anc[i] = (lpos[k][l][i] + tmp[i]) - org[i];
@@ -116,9 +123,9 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
   vb[1] = (qv[3] * ax[0][1] + qv[4] * ax[1][1]) + qv[5] * ax[2][1];
   vb[2] = (qv[3] * ax[0][2] + qv[4] * ax[1][2]) + qv[5] * ax[2][2];
   vb[3] = qv[0]; vb[4] = qv[1]; vb[5] = qv[2];
-  T vl[3][4][6];
+  T vl[3][NL][6];
 #pragma unroll
-  for (int l = 0; l < 4; ++l)
+  for (int l = 0; l < NL; ++l)
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       for (int i = 0; i < 6; ++i)
@@ -139,11 +146,11 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
     }
     spatial_inertia(mass, inertia, imat, c, Ib);
   }
-  SpInertia<T> Il[3][4];
+  SpInertia<T> Il[3][NL];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
+    for (int l = 0; l < NL; ++l) {
       T tmp[3], c[3], imat[9];
       mat_vec(lmat[k][l], M.lev_ipos[k], tmp);
       for (int i = 0; i < 3; ++i) c[i] = (lpos[k][l][i] + tmp[i]) - org[i];
@@ -152,19 +159,23 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
     }
 
   // ---- CRBA: composite inertias leaf -> root, then the block matrix ----
-  Blocks<T> Mb;
+  Blocks<NL, T> Mb;
   {
-    SpInertia<T> Ic[3][4];
+    SpInertia<T> Ic[3][NL];
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
+    for (int l = 0; l < NL; ++l) {
       Ic[2][l] = Il[2][l];
       Ic[1][l] = Il[1][l]; si_add(Ic[1][l], Ic[2][l]);
       Ic[0][l] = Il[0][l]; si_add(Ic[0][l], Ic[1][l]);
     }
     SpInertia<T> Icb = Ib;
-    Icb.m = Icb.m + sum4(Ic[0][0].m, Ic[0][1].m, Ic[0][2].m, Ic[0][3].m);
-    for (int i = 0; i < 3; ++i) Icb.h[i] = Icb.h[i] + sum4(Ic[0][0].h[i], Ic[0][1].h[i], Ic[0][2].h[i], Ic[0][3].h[i]);
-    for (int i = 0; i < 9; ++i) Icb.I[i] = Icb.I[i] + sum4(Ic[0][0].I[i], Ic[0][1].I[i], Ic[0][2].I[i], Ic[0][3].I[i]);
+    Icb.m = Icb.m + leg_sum<NL, T>([&](int l) { return Ic[0][l].m; });
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      Icb.h[i] = Icb.h[i] + leg_sum<NL, T>([&](int l) { return Ic[0][l].h[i]; });
+#pragma unroll
+    for (int i = 0; i < 9; ++i)
+      Icb.I[i] = Icb.I[i] + leg_sum<NL, T>([&](int l) { return Ic[0][l].I[i]; });
     T Ff[6][6];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
@@ -185,7 +196,7 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
+      for (int l = 0; l < NL; ++l) {
         T Fl[6];
         si_vec(Ic[k][l], Sl[k][l], Fl);
         for (int i = 0; i < 6; ++i) {
@@ -202,7 +213,7 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
   }
 
   // ---- RNE bias forces (gravity + velocity products) ----
-  T bias_f[6], bias_l[3][4];
+  T bias_f[6], bias_l[3][NL];
   {
     const T vJb[6] = {vb[0], vb[1], vb[2], vb[3] - qv[0], vb[4] - qv[1], vb[5] - qv[2]};
     T accb[6], tmp[6];
@@ -218,9 +229,9 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
     };
     T fb[6];
     body_force(Ib, vb, accb, fb);
-    T fsub[3][4][6];
+    T fsub[3][NL][6];
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
+    for (int l = 0; l < NL; ++l) {
       T acc[3][6], fl[3][6];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -237,8 +248,9 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
       }
     }
     T fbase[6];
+#pragma unroll
     for (int i = 0; i < 6; ++i)
-      fbase[i] = fb[i] + sum4(fsub[0][0][i], fsub[0][1][i], fsub[0][2][i], fsub[0][3][i]);
+      fbase[i] = fb[i] + leg_sum<NL, T>([&](int l) { return fsub[0][l][i]; });
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
       T s[6];
@@ -248,17 +260,17 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) bias_l[k][l] = sv_dot(Sl[k][l], fsub[k][l]);
+      for (int l = 0; l < NL; ++l) bias_l[k][l] = sv_dot(Sl[k][l], fsub[k][l]);
   }
 
   // ---- servo actuation + passive forces ----
-  T qff[6], qfl[3][4], dvel[3][4];
+  T qff[6], qfl[3][NL], dvel[3][NL];
 #pragma unroll
   for (int i = 0; i < 6; ++i) qff[i] = -M.free_damping[i] * qv[i] - bias_f[i];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
+    for (int l = 0; l < NL; ++l) {
       T kp_term = M.lev_kp[k] * al[k][l];
       T bias_q = M.lev_bq[k] * ql[k][l];
       if (dp.has_gain) {
@@ -272,16 +284,20 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
       qfl[k][l] = (M.lev_gear[k] * clamped - M.leg_damping * qvl[k][l]) - bias_l[k][l];
     }
 
-  T xf[6], xl[3][4];
+  T xf[6], xl[3][NL];
   {
-    Factor<T> F;
+    Factor<NL, T> F;
     ldl_factor(Mb, F);
     ldl_solve(F, qff, qfl, xf, xl);
   }
 
   // ---- contacts + constraint rows + Newton ----
   if (iterations > 0) {
-    Rows<T> R;
+    Rows<NL, T> R;
+    R.M = &M;
+    R.has_friction = dp.has_friction;
+    R.friction = dp.friction;
+    R.st = rows;
     T gframe[9], goff;
     if (dp.has_tilt) {
       tilt_frame(dp.tilt_x, dp.tilt_y, gframe);
@@ -294,7 +310,7 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
+      for (int l = 0; l < NL; ++l) {
         const T d_lo = ql[k][l] - M.lev_range[k][0];
         const T d_hi = M.lev_range[k][1] - ql[k][l];
         const bool lower = d_lo <= d_hi;
@@ -315,14 +331,26 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
       const int nslot = M.grp_nslot[g];
       const int v0i = M.grp_vstart[g], V = M.grp_nvert[g];
       const T margin = M.grp_margin[g], margin2 = M.grp_margin2[g];
-      const T mu = dp.has_friction ? dp.friction : M.grp_friction[g];
-      T gpos[4][3], gmat[4][9], fr[4][9], a[4][3], base[4];
+      const T mu = R.mu(g);
+      T gpos[NL][3], gmat[NL][9], fr[NL][9], a[NL][3], base[NL];
+      // level is a run-time value: pick the body's frame by compare-and-keep
+      // so that lpos, lmat and Sl stay in registers
+      T bpos[NL][3], bmt[NL][9];
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
+      for (int l = 0; l < NL; ++l) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          if (k == level) {
+            for (int i = 0; i < 3; ++i) bpos[l][i] = lpos[k][l][i];
+            for (int i = 0; i < 9; ++i) bmt[l][i] = lmat[k][l][i];
+          }
+      }
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
         T tmp[3];
-        mat_vec(lmat[level][l], M.grp_pos[g], tmp);
-        for (int i = 0; i < 3; ++i) gpos[l][i] = lpos[level][l][i] + tmp[i];
-        mat_mul(lmat[level][l], M.grp_mat[g], gmat[l]);
+        mat_vec(bmt[l], M.grp_pos[g], tmp);
+        for (int i = 0; i < 3; ++i) gpos[l][i] = bpos[l][i] + tmp[i];
+        mat_mul(bmt[l], M.grp_mat[g], gmat[l]);
         T off;
         if (dp.has_terrain) {
           terrain_plane(M, dp, gpos[l][0], gpos[l][1], fr[l], off);
@@ -338,32 +366,35 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
         return (v[0] * a[l][0] + v[1] * a[l][1]) + (v[2] * a[l][2] + base[l]);
       };
       // slot 0: deepest vertex (strict <: first index wins ties)
-      int i0[4], i1[4], i2[4];
-      T h0[4], h1[4], h2[4], d1[4], c2[4];
+      int i0[NL], i1[NL], i2[NL];
+      T h0[NL], h1[NL], h2[NL], d1[NL], c2[NL];
 #pragma unroll
-      for (int l = 0; l < 4; ++l) { i0[l] = 0; h0[l] = height(0, l); }
+      for (int l = 0; l < NL; ++l) {
+        i0[l] = 0; h0[l] = height(0, l);
+        i1[l] = -1; h1[l] = T(0); d1[l] = T(-1);
+        i2[l] = -1; h2[l] = T(0); c2[l] = T(-1);
+      }
       for (int i = 1; i < V; ++i)
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
+        for (int l = 0; l < NL; ++l) {
           const T hi = height(i, l);
           if (hi < h0[l]) { h0[l] = hi; i0[l] = i; }
         }
       // slot 1: farthest in-plane candidate from v0
-      if (nslot >= 2) {
-        T v0n2[4];
+      T v0[NL][3];  // the deepest vertex, read once (its index differs by thread)
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          const T* v0 = M.vert[v0i + i0[l]];
-          v0n2[l] = dot3(v0, v0);
-          d1[l] = T(-1); i1[l] = -1; h1[l] = T(0);
-        }
+      for (int l = 0; l < NL; ++l)
+        for (int c = 0; c < 3; ++c) v0[l][c] = M.vert[v0i + i0[l]][c];
+      if (nslot >= 2) {
+        T v0n2[NL];
+#pragma unroll
+        for (int l = 0; l < NL; ++l) v0n2[l] = dot3(v0[l], v0[l]);
         for (int i = 0; i < V; ++i) {
           const T* vi = M.vert[v0i + i];
 #pragma unroll
-          for (int l = 0; l < 4; ++l) {
-            const T* v0 = M.vert[v0i + i0[l]];
+          for (int l = 0; l < NL; ++l) {
             const T hi = height(i, l);
-            const T vdot0 = (vi[0] * v0[0] + vi[1] * v0[1]) + vi[2] * v0[2];
+            const T vdot0 = (vi[0] * v0[l][0] + vi[1] * v0[l][1]) + vi[2] * v0[l][2];
             const T dv2 = (M.vert_n2[v0i + i] - T(2) * vdot0) + v0n2[l];
             const T dh = hi - h0[l];
             const T dplan = sqrt(fmax(dv2 - dh * dh, T(0)));
@@ -374,25 +405,24 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
       }
       // slot 2: largest spread across the v0-v1 line
       if (nslot >= 3) {
-        T gq[4][3], v0gq[4];
+        T gq[NL][3], v0gq[NL];
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          const T* v0 = M.vert[v0i + i0[l]];
+        for (int l = 0; l < NL; ++l) {
           T dv[3], u1[3], t[3], perp[3];
-          for (int c = 0; c < 3; ++c) dv[c] = (i1[l] >= 0 ? M.vert[v0i + i1[l]][c] : T(0)) - v0[c];
+          for (int c = 0; c < 3; ++c)
+            dv[c] = (i1[l] >= 0 ? M.vert[v0i + i1[l]][c] : T(0)) - v0[l][c];
           mat_vec(gmat[l], dv, u1);
           const T inv_d1 = T(1) / fmax(d1[l], T(1e-12));
           const T dh = h1[l] - h0[l];
           for (int c = 0; c < 3; ++c) t[c] = (u1[c] - fr[l][c] * dh) * inv_d1;
           cross3(fr[l], t, perp);
           mat_tvec(gmat[l], perp, gq[l]);
-          v0gq[l] = dot3(v0, gq[l]);
-          c2[l] = T(-1); i2[l] = -1; h2[l] = T(0);
+          v0gq[l] = dot3(v0[l], gq[l]);
         }
         for (int i = 0; i < V; ++i) {
           const T* vi = M.vert[v0i + i];
 #pragma unroll
-          for (int l = 0; l < 4; ++l) {
+          for (int l = 0; l < NL; ++l) {
             const T hi = height(i, l);
             const T cdot = (vi[0] * gq[l][0] + vi[1] * gq[l][1]) + vi[2] * gq[l][2];
             const T s = hi < margin2 ? fabs(cdot - v0gq[l]) : T(-1);
@@ -403,9 +433,8 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
       // emit the group's slots as constraint rows
       for (int j = 0; j < nslot; ++j) {
         const int s = ns + j;
-        R.mu[s] = mu;
 #pragma unroll
-        for (int l = 0; l < 4; ++l) {
+        for (int l = 0; l < NL; ++l) {
           int vi;
           T dist;
           bool act_ = h0[l] < margin;
@@ -425,7 +454,8 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
             rel[c] = (p[c] - (T(0.5) * fr[l][c]) * dist) - org[c];
           }
           // Jacobian rows: dof d moves the contact point by w = ang x rel + lin
-          T(&J)[3][9] = R.J[s][l];
+          T J[3][9];
+#pragma unroll
           for (int d = 0; d < 9; ++d) {
             T w[3];
             if (d < 3) {
@@ -441,12 +471,17 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
             }
             for (int e = 0; e < 3; ++e) J[e][d] = dot3(w, fr[l] + 3 * e);
           }
+#pragma unroll
+          for (int e = 0; e < 3; ++e)
+#pragma unroll
+            for (int d = 0; d < 9; ++d) rows.at(s, ROW_J + 9 * e + d, l) = J[e][d];
           const T r = dist - M.grp_inc[g];
           const T imp = impedance(M.grp_imp[g], r);
           const T diagA = M.grp_2invweight[g] * (T(1) + mu * mu);
           const T Rv = fmax((T(1) - imp) / imp * diagA, T(1e-15));
-          R.D[s][l] = act_ ? T(1) / Rv : T(0);
+          rows.at(s, ROW_D, l) = act_ ? T(1) / Rv : T(0);
           T v[3];
+#pragma unroll
           for (int e = 0; e < 3; ++e) {
             T acc = J[e][0] * qv[0];
             for (int i = 1; i < 6; ++i) acc = acc + J[e][i] * qv[i];
@@ -454,19 +489,18 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
             v[e] = acc;
           }
           const T kr = (M.grp_K[g] * imp) * r;
-          R.aref[s][l][0] = -M.grp_B[g] * (v[0] + mu * v[1]) - kr;
-          R.aref[s][l][1] = -M.grp_B[g] * (v[0] + -mu * v[1]) - kr;
-          R.aref[s][l][2] = -M.grp_B[g] * (v[0] + mu * v[2]) - kr;
-          R.aref[s][l][3] = -M.grp_B[g] * (v[0] + -mu * v[2]) - kr;
+          rows.at(s, ROW_AREF + 0, l) = -M.grp_B[g] * (v[0] + mu * v[1]) - kr;
+          rows.at(s, ROW_AREF + 1, l) = -M.grp_B[g] * (v[0] + -mu * v[1]) - kr;
+          rows.at(s, ROW_AREF + 2, l) = -M.grp_B[g] * (v[0] + mu * v[2]) - kr;
+          rows.at(s, ROW_AREF + 3, l) = -M.grp_B[g] * (v[0] + -mu * v[2]) - kr;
         }
       }
       ns += nslot;
     }
-    R.nslot = ns;
-    T qaf[6], qal[3][4];
+    T qaf[6], qal[3][NL];
     for (int i = 0; i < 6; ++i) qaf[i] = xf[i];
     for (int k = 0; k < 3; ++k)
-      for (int l = 0; l < 4; ++l) qal[k][l] = xl[k][l];
+      for (int l = 0; l < NL; ++l) qal[k][l] = xl[k][l];
     newton_solve(Mb, R, qaf, qal, iterations, ls_iterations, xf, xl);
   }
 
@@ -519,19 +553,26 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
       mat_tvec(smat, vsite, vloc);
       const T xaxis[3] = {smat[0], smat[3], smat[6]};
       const T zaxis[3] = {smat[2], smat[5], smat[8]};
+      const bool base_owner = leg0 == 0;
       auto put3 = [&](int adr, const T v[3]) {
-        for (int i = 0; i < 3; ++i) full[(size_t)(adr + i) * stride] = v[i];
+        if (base_owner)
+          for (int i = 0; i < 3; ++i) full[(size_t)(adr + i) * stride] = v[i];
       };
       for (int s = 0; s < M.nsensor; ++s) {
         const int adr = M.sens_adr[s];
         switch (M.sens_kind[s]) {
           case SENS_JOINTPOS: {
-            // compare-and-keep, so q stays in registers (no dynamic index)
+            // written by the joint's owner; compare-and-keep, so the
+            // joint positions stay in registers (no run-time index)
+            const int leg = M.sens_joint[s] / 3, lev = M.sens_joint[s] - 3 * leg;
             T v = T(0);
+            bool mine = false;
 #pragma unroll
-            for (int j = 0; j < 12; ++j)
-              if (j == M.sens_joint[s]) v = q[7 + j];
-            full[(size_t)adr * stride] = v;
+            for (int k = 0; k < 3; ++k)
+#pragma unroll
+              for (int l = 0; l < NL; ++l)
+                if (leg == leg0 + l && lev == k) { v = ql[k][l]; mine = true; }
+            if (mine) full[(size_t)adr * stride] = v;
             break;
           }
           case SENS_ACCELEROMETER: put3(adr, accel); break;
@@ -549,59 +590,41 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, T q[19],
 
   // ---- implicitfast: (M - h diag(D)) dv = h M qacc ----
   {
-    Blocks<T> Mh = Mb;
+    Blocks<NL, T> Mh = Mb;
 #pragma unroll
     for (int i = 0; i < 6; ++i)
       if (M.free_damping[i] != T(0)) Mh.ff[i][i] = Mh.ff[i][i] - h * (-M.free_damping[i]);
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l)
+      for (int l = 0; l < NL; ++l)
         Mh.ll[k][k][l] = Mh.ll[k][k][l] - h * (-M.leg_damping + dvel[k][l]);
-    Factor<T> F;
+    Factor<NL, T> F;
     ldl_factor(Mh, F);
-    T mqf[6], mql[3][4], dvf[6], dvl[3][4];
+    T mqf[6], mql[3][NL], dvf[6], dvl[3][NL];
     sym_matvec(Mb, xf, xl, mqf, mql);
     for (int i = 0; i < 6; ++i) mqf[i] = h * mqf[i];
     for (int k = 0; k < 3; ++k)
-      for (int l = 0; l < 4; ++l) mql[k][l] = h * mql[k][l];
+      for (int l = 0; l < NL; ++l) mql[k][l] = h * mql[k][l];
     ldl_solve(F, mqf, mql, dvf, dvl);
-    for (int i = 0; i < 6; ++i) qv[i] = qv[i] + dvf[i];
+    for (int i = 0; i < 6; ++i) st.vf[i] = st.vf[i] + dvf[i];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
+      for (int l = 0; l < NL; ++l) {
         const T v = qvl[k][l] + dvl[k][l];
-        qv[6 + 3 * l + k] = v;
-        q[7 + 3 * l + k] = ql[k][l] + h * v;
-        act[3 * l + k] = al[k][l] + (cl[k][l] - al[k][l]) * M.act_coef;
+        qvl[k][l] = v;
+        ql[k][l] = ql[k][l] + h * v;
+        al[k][l] = al[k][l] + (cl[k][l] - al[k][l]) * M.act_coef;
       }
   }
-  for (int i = 0; i < 3; ++i) q[i] = q[i] + h * qv[i];
+  for (int i = 0; i < 3; ++i) st.qb[i] = st.qb[i] + h * st.vf[i];
   {
-    T quat[4] = {q[3], q[4], q[5], q[6]};
-    const T om[3] = {qv[3], qv[4], qv[5]};
+    T quat[4] = {st.qb[3], st.qb[4], st.qb[5], st.qb[6]};
+    const T om[3] = {st.vf[3], st.vf[4], st.vf[5]};
     quat_integrate(quat, om, h);
-    for (int i = 0; i < 4; ++i) q[3 + i] = quat[i];
+    for (int i = 0; i < 4; ++i) st.qb[3 + i] = quat[i];
   }
-}
-
-// the fused rollout's substep: the cost's 6 sensors only
-template <typename T>
-QG_DEV void leg_substep(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18], T act[12],
-                        const T ctrl[12], int iterations, int ls_iterations,
-                        CostSensors<T>* sens) {
-  leg_substep_impl<false>(M, dp, q, qv, act, ctrl, iterations, ls_iterations, sens,
-                          static_cast<T*>(nullptr), (size_t)0);
-}
-
-// the substep kernel's: every sensor, written strided, when ``full`` is set
-template <typename T>
-QG_DEV void leg_substep_full(const LegModel<T>& M, const Domain<T>& dp, T q[19], T qv[18],
-                             T act[12], const T ctrl[12], int iterations, int ls_iterations,
-                             T* full, size_t stride) {
-  leg_substep_impl<true>(M, dp, q, qv, act, ctrl, iterations, ls_iterations,
-                         static_cast<CostSensors<T>*>(nullptr), full, stride);
 }
 
 }  // namespace qg

@@ -1,15 +1,20 @@
 // One rollout: H control steps x frame_skip substeps plus the walking
-// stage cost (pallas_engine.py::_lane_stage_cost), for rollout ``s``.
-// Shared by the CUDA kernel and a host build of the same source.
+// stage cost (pallas_engine.py::_lane_stage_cost), for rollout ``s``, in a
+// thread that owns NL of the robot's legs (leg_step.cuh). Shared by the
+// CUDA kernel (NL = 1) and a host build of the same source.
 #pragma once
 
 #include "leg_step.cuh"
 
 namespace qg {
 
-template <typename T>
-QG_DEV T stage_cost(const CostSensors<T>& s, const T ctrl[12], const T prev[12],
-                        const T cmd[5], T height, const T centers[12]) {
+// ``ctrl`` and ``prev`` are the owned legs' controls by level. Each leg
+// sums its three posture and control-change terms and the legs are then
+// added, where the plain version sums the 12 actuators in one pass: the
+// two sums differ from it by rounding only.
+template <int NL, typename T>
+QG_DEV T stage_cost(const CostSensors<T>& s, int leg0, const T ctrl[3][NL], const T prev[3][NL],
+                    const T* cmd, T height, const T centers[12]) {
   const T vx = s.vel[0], vy = s.vel[1];
   const T n2 = vx * vx + vy * vy;
   const T vnorm = n2 > T(0) ? sqrt(n2) : T(0);
@@ -20,13 +25,21 @@ QG_DEV T stage_cost(const CostSensors<T>& s, const T ctrl[12], const T prev[12],
   const T heading = s.xaxis[0] * cmd[3] + s.xaxis[1] * cmd[4];
   const T orient = s.zaxis_z;
   const T height_cost = fabs(s.pos_z - height);
-  T posture2 = T(0), dctrl = T(0);
-  for (int u = 0; u < 12; ++u) {
-    const T d = (ctrl[u] - centers[u]) / T(12);
-    posture2 = posture2 + d * d;
-    const T e = ctrl[u] - prev[u];
-    dctrl = dctrl + e * e;
+  T post_l[NL], dctrl_l[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    post_l[l] = T(0);
+    dctrl_l[l] = T(0);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const T d = (ctrl[k][l] - centers[3 * (leg0 + l) + k]) / T(12);
+      post_l[l] = post_l[l] + d * d;
+      const T e = ctrl[k][l] - prev[k][l];
+      dctrl_l[l] = dctrl_l[l] + e * e;
+    }
   }
+  const T posture2 = leg_sum<NL, T>([&](int l) { return post_l[l]; });
+  const T dctrl = leg_sum<NL, T>([&](int l) { return dctrl_l[l]; });
   const T reward = ((((((((T(10) + T(10) * prog_dir) - T(50) * speed_cost)
                          + T(10) * (exp(heading) - T(1)))
                         + T(10) * (exp(orient) - T(1)))
@@ -37,29 +50,57 @@ QG_DEV T stage_cost(const CostSensors<T>& s, const T ctrl[12], const T prev[12],
   return -reward;
 }
 
-template <typename T>
-QG_DEV T rollout_cost(const LegModel<T>& M, const T* qpos0, const T* qvel0, const T* act0,
-                      const T* seqs, const T* prev0, const T* cmd_in, const DomainLanes<T>& lanes,
-                      int s, int S, int H, int frame_skip, int iterations, int ls_iterations,
-                      T height) {
-  const Domain<T> dp = load_domain(lanes, (size_t)s);
+// The shared start state, this thread's share of it
+template <int NL, typename T>
+QG_DEV void load_shared_state(const T* qpos0, const T* qvel0, const T* act0, int leg0,
+                              LegState<NL, T>& st) {
+  for (int i = 0; i < 7; ++i) st.qb[i] = qpos0[i];
+  for (int i = 0; i < 6; ++i) st.vf[i] = qvel0[i];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const int u = 3 * (leg0 + l) + k;
+      st.q[k][l] = qpos0[7 + u];
+      st.qv[k][l] = qvel0[6 + u];
+      st.act[k][l] = act0[u];
+    }
+}
 
-  T q[19], qv[18], act[12], prev[12], ctrl[12], cmd[5];
-  for (int i = 0; i < 19; ++i) q[i] = qpos0[i];
-  for (int i = 0; i < 18; ++i) qv[i] = qvel0[i];
-  for (int i = 0; i < 12; ++i) { act[i] = act0[i]; prev[i] = prev0[i]; }
-  for (int i = 0; i < 5; ++i) cmd[i] = cmd_in[i];
+// Total cost of rollout s; every thread of the robot returns the same bits.
+template <int NL, typename T>
+QG_DEV T rollout_cost(const LegModel<T>& M, const T* qpos0, const T* qvel0, const T* act0,
+                      const T* seqs, const T* prev0, const T* cmd, const DomainLanes<T>& lanes,
+                      int leg0, int s, int S, int H, int frame_skip, int iterations,
+                      int ls_iterations, T height, RowStore<NL, T> rows) {
+  const Domain<T> dp = load_domain(lanes, (size_t)s);
+  LegState<NL, T> st;
+  load_shared_state(qpos0, qvel0, act0, leg0, st);
+  T prev[3][NL], ctrl[3][NL];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) prev[k][l] = prev0[3 * (leg0 + l) + k];
 
   T cost = T(0);
   for (int t = 0; t < H; ++t) {
-    for (int u = 0; u < 12; ++u) ctrl[u] = seqs[((size_t)t * 12 + u) * S + s];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int l = 0; l < NL; ++l)
+        ctrl[k][l] = seqs[((size_t)t * 12 + 3 * (leg0 + l) + k) * S + s];
     for (int sub = 0; sub + 1 < frame_skip; ++sub)
-      leg_substep(M, dp, q, qv, act, ctrl, iterations, ls_iterations,
-                  static_cast<CostSensors<T>*>(nullptr));
+      leg_substep_impl<NL, false>(M, dp, leg0, st, ctrl, iterations, ls_iterations, rows,
+                                  static_cast<CostSensors<T>*>(nullptr),
+                                  static_cast<T*>(nullptr), (size_t)0);
     CostSensors<T> sens;
-    leg_substep(M, dp, q, qv, act, ctrl, iterations, ls_iterations, &sens);
-    cost = cost + stage_cost(sens, ctrl, prev, cmd, height, M.joint_centers);
-    for (int u = 0; u < 12; ++u) prev[u] = ctrl[u];
+    leg_substep_impl<NL, false>(M, dp, leg0, st, ctrl, iterations, ls_iterations, rows, &sens,
+                                static_cast<T*>(nullptr), (size_t)0);
+    cost = cost + stage_cost<NL>(sens, leg0, ctrl, prev, cmd, height, M.joint_centers);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int l = 0; l < NL; ++l) prev[k][l] = ctrl[k][l];
   }
   return cost;
 }

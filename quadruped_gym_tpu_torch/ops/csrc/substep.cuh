@@ -1,37 +1,66 @@
 // One lane of the substep kernel: ``nsub`` substeps under a constant
-// control on lane ``b`` of the batch-minor (d, B) state arrays. Shared by
-// the CUDA kernel and a host build of the same source.
+// control on lane ``b`` of the batch-minor (d, B) state arrays, in a
+// thread that owns NL of the robot's legs (leg_step.cuh). Shared by the
+// CUDA kernel (NL = 1) and a host build of the same source.
 #pragma once
 
 #include "leg_step.cuh"
 
 namespace qg {
 
-// Reads column b of qpos (19, B), qvel (18, B), act (12, B), ctrl (12, B),
-// runs nsub substeps in place in this lane's registers, and writes column
-// b of the outputs. sens_out (nsensordata, B) gets the pre-integration
-// sensors of the LAST substep when compute_sensors is set, else zeros.
-template <typename T>
+// Reads this thread's share of column b of qpos (19, B), qvel (18, B),
+// act (12, B), ctrl (12, B), runs nsub substeps in place in registers, and
+// writes its share of column b of the outputs: its legs' joints, and the
+// base rows if it owns leg 0. sens_out (nsensordata, B) gets the
+// pre-integration sensors of the LAST substep when compute_sensors is
+// set, else zeros. With ``store`` false (a thread past the ragged edge,
+// kept alive for the quad sums) nothing is written.
+template <int NL, typename T>
 QG_DEV void lane_substeps(const LegModel<T>& M, const T* qpos, const T* qvel, const T* act_in,
                           const T* ctrl_in, const DomainLanes<T>& lanes, T* qpos_out,
-                          T* qvel_out, T* act_out, T* sens_out, size_t b, size_t B, int nsub,
-                          int iterations, int ls_iterations, bool compute_sensors) {
+                          T* qvel_out, T* act_out, T* sens_out, int leg0, size_t b, size_t B,
+                          int nsub, int iterations, int ls_iterations, bool compute_sensors,
+                          bool store, RowStore<NL, T> rows) {
   const Domain<T> dp = load_domain(lanes, b);
-  T q[19], qv[18], act[12], ctrl[12];
-  for (int i = 0; i < 19; ++i) q[i] = qpos[i * B + b];
-  for (int i = 0; i < 18; ++i) qv[i] = qvel[i * B + b];
-  for (int i = 0; i < 12; ++i) { act[i] = act_in[i * B + b]; ctrl[i] = ctrl_in[i * B + b]; }
+  const bool base_owner = leg0 == 0;
+  LegState<NL, T> st;
+  T ctrl[3][NL];
+  for (int i = 0; i < 7; ++i) st.qb[i] = qpos[i * B + b];
+  for (int i = 0; i < 6; ++i) st.vf[i] = qvel[i * B + b];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const size_t u = 3 * (leg0 + l) + k;
+      st.q[k][l] = qpos[(7 + u) * B + b];
+      st.qv[k][l] = qvel[(6 + u) * B + b];
+      st.act[k][l] = act_in[u * B + b];
+      ctrl[k][l] = ctrl_in[u * B + b];
+    }
 
-  if (!compute_sensors)
+  if (!compute_sensors && store && base_owner)
     for (int i = 0; i < M.nsensordata; ++i) sens_out[i * B + b] = T(0);
   for (int sub = 0; sub < nsub; ++sub) {
-    T* full = (compute_sensors && sub + 1 == nsub) ? sens_out + b : static_cast<T*>(nullptr);
-    leg_substep_full(M, dp, q, qv, act, ctrl, iterations, ls_iterations, full, B);
+    T* full = (compute_sensors && store && sub + 1 == nsub) ? sens_out + b
+                                                             : static_cast<T*>(nullptr);
+    leg_substep_impl<NL, true>(M, dp, leg0, st, ctrl, iterations, ls_iterations, rows,
+                               static_cast<CostSensors<T>*>(nullptr), full, B);
   }
 
-  for (int i = 0; i < 19; ++i) qpos_out[i * B + b] = q[i];
-  for (int i = 0; i < 18; ++i) qvel_out[i * B + b] = qv[i];
-  for (int i = 0; i < 12; ++i) act_out[i * B + b] = act[i];
+  if (!store) return;
+  if (base_owner) {
+    for (int i = 0; i < 7; ++i) qpos_out[i * B + b] = st.qb[i];
+    for (int i = 0; i < 6; ++i) qvel_out[i * B + b] = st.vf[i];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const size_t u = 3 * (leg0 + l) + k;
+      qpos_out[(7 + u) * B + b] = st.q[k][l];
+      qvel_out[(6 + u) * B + b] = st.qv[k][l];
+      act_out[u * B + b] = st.act[k][l];
+    }
 }
 
 }  // namespace qg

@@ -15,23 +15,30 @@
 // about 570 bytes in and out per launch (19 + 18 + 12 + 12 values in,
 // 19 + 18 + 12 + 33 out) against tens of thousands of operations per
 // substep (ops/cuda_engine.py::substep_flops counts them from the plain
-// version). Nothing here maps onto the tensor cores.
+// version). Nothing here maps onto the tensor cores; the dependent chains
+// of the dynamics make the warps wait on latency, so the kernel wants
+// little state per thread (nothing in local memory) and then as many
+// resident warps as that leaves room for.
 //
-// Design: one thread per lane, blocks of 128, the ragged edge masked, so
-// B need not divide anything. Neighbouring threads read neighbouring
-// lanes of each row: every load and store is coalesced. The device code
-// is the fused rollout kernel's substep (leg_substep.cuh) compiled with
-// the full sensor table on; the model constants are the same packed
-// struct. As there, the price of a whole substep in one thread is
-// register pressure and a local-memory stack for the contact rows; and a
-// batch of a few thousand lanes (an RL env batch) fills only B / 128 of
-// the card's 132 SMs.
+// Design: the fused rollout kernel's (rollout_kernel.cu): a thread per
+// leg, an aligned quad of a warp per lane, the legs' sums by two shuffles
+// inside the quad, the contact rows in dynamic shared memory sized by the
+// model's slots, block size and bytes chosen by the wrapper. The grid is
+// 4 B threads, so an env batch of a few thousand lanes still spreads over
+// the card's 132 SMs. B need not divide anything: threads past the ragged
+// edge stay alive on a clamped lane (the quad sums need all 32 lanes) and
+// store nothing. A thread reads the base rows (the four threads of a quad
+// read the same address) and its own leg's joint rows, four 32-byte
+// segments a warp per row; the base rows and the base-site sensors are
+// written by the thread of leg 0, a joint's position sensor by its leg's
+// thread. The device code is the fused kernel's substep (leg_substep.cuh)
+// compiled with the full sensor table on; the model constants are the
+// same packed struct.
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -shared -Xcompiler -fPIC -DQG_REAL=float|double.
 
-#include <cuda_runtime.h>
-
+#include "launch.cuh"
 #include "substep.cuh"
 
 #ifndef QG_REAL
@@ -40,17 +47,25 @@
 
 namespace qg {
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-substep_kernel(const LegModel<T>* __restrict__ model, const T* __restrict__ qpos,
-               const T* __restrict__ qvel, const T* __restrict__ act,
-               const T* __restrict__ ctrl, DomainLanes<T> lanes, T* __restrict__ qpos_out,
-               T* __restrict__ qvel_out, T* __restrict__ act_out, T* __restrict__ sens_out,
-               int B, int nsub, int iterations, int ls_iterations, int compute_sensors) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  lane_substeps(*model, qpos, qvel, act, ctrl, lanes, qpos_out, qvel_out, act_out, sens_out,
-                (size_t)b, (size_t)B, nsub, iterations, ls_iterations, compute_sensors != 0);
+using Real = QG_REAL;
+
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+substep_kernel(const LegModel<Real>* __restrict__ model, const Real* __restrict__ qpos,
+               const Real* __restrict__ qvel, const Real* __restrict__ act,
+               const Real* __restrict__ ctrl, DomainLanes<Real> lanes,
+               Real* __restrict__ qpos_out, Real* __restrict__ qvel_out,
+               Real* __restrict__ act_out, Real* __restrict__ sens_out, int B, int nsub,
+               int iterations, int ls_iterations, int compute_sensors) {
+  extern __shared__ __align__(16) unsigned char qg_smem[];
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const int leg = threadIdx.x & 3;
+  const bool valid = r < B;
+  const int b = valid ? r : B - 1;
+  const RowStore<1, Real> rows{reinterpret_cast<Real*>(qg_smem) + threadIdx.x,
+                               (size_t)blockDim.x};
+  lane_substeps<1>(*model, qpos, qvel, act, ctrl, lanes, qpos_out, qvel_out, act_out, sens_out,
+                   leg, (size_t)b, (size_t)B, nsub, iterations, ls_iterations,
+                   compute_sensors != 0, valid, rows);
 }
 
 }  // namespace qg
@@ -60,25 +75,37 @@ extern "C" {
 // struct before the first upload
 int qg_model_size() { return (int)sizeof(qg::LegModel<QG_REAL>); }
 
-// Launch on ``stream``; returns cudaGetLastError() (0 on success). Every
-// pointer is device memory; DomainParams lanes are nullptr where nominal.
-// The outputs must not alias the inputs.
+// registers, local bytes and resident blocks per SM of the kernel at a
+// block size and dynamic shared size; returns a CUDA error code, 0 if none
+int qg_kernel_info(int threads, int smem_bytes, int* registers, int* local_bytes,
+                   int* blocks_per_sm) {
+  return qg::kernel_info(qg::substep_kernel, threads, smem_bytes, registers,
+                         local_bytes, blocks_per_sm);
+}
+
+// Launch ``grid`` blocks of ``threads`` (4 threads a lane) with
+// ``smem_bytes`` of dynamic shared memory on ``stream``; returns the CUDA
+// error of the request or of the launch (0 on success). Every pointer is
+// device memory; DomainParams lanes are nullptr where nominal. The
+// outputs must not alias the inputs.
 int qg_substeps(const void* model, const void* qpos, const void* qvel, const void* act,
                 const void* ctrl, const void* friction, const void* gain_scale,
                 const void* base_mass_scale, const void* tilt_x, const void* tilt_y,
                 const void* terrain_amp, const void* terrain_freq, void* qpos_out,
                 void* qvel_out, void* act_out, void* sens_out, int B, int nsub, int iterations,
-                int ls_iterations, int compute_sensors, void* stream) {
-  using T = QG_REAL;
-  qg::DomainLanes<T> lanes{(const T*)friction, (const T*)gain_scale, (const T*)base_mass_scale,
-                           (const T*)tilt_x, (const T*)tilt_y, (const T*)terrain_amp,
-                           (const T*)terrain_freq};
-  const int block = 128;
-  const int grid = (B + block - 1) / block;
-  qg::substep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const qg::LegModel<T>*)model, (const T*)qpos, (const T*)qvel, (const T*)act,
-      (const T*)ctrl, lanes, (T*)qpos_out, (T*)qvel_out, (T*)act_out, (T*)sens_out, B, nsub,
-      iterations, ls_iterations, compute_sensors);
+                int ls_iterations, int compute_sensors, int grid, int threads, int smem_bytes,
+                void* stream) {
+  using qg::Real;
+  qg::DomainLanes<Real> lanes{(const Real*)friction,    (const Real*)gain_scale,
+                              (const Real*)base_mass_scale, (const Real*)tilt_x,
+                              (const Real*)tilt_y,      (const Real*)terrain_amp,
+                              (const Real*)terrain_freq};
+  const int err = qg::allow_shared(qg::substep_kernel, smem_bytes);
+  if (err != 0) return err;
+  qg::substep_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const qg::LegModel<Real>*)model, (const Real*)qpos, (const Real*)qvel, (const Real*)act,
+      (const Real*)ctrl, lanes, (Real*)qpos_out, (Real*)qvel_out, (Real*)act_out,
+      (Real*)sens_out, B, nsub, iterations, ls_iterations, compute_sensors);
   return (int)cudaGetLastError();
 }
 

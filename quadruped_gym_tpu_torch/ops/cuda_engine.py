@@ -18,12 +18,18 @@ version (``fused_rollout_cost_reference``, ``step_reference``,
 ``control_step_reference``: the eager leg engine) only for CPU tensors.
 The model's constants are packed into one ``LegModel`` struct
 (``csrc/leg_model.cuh``) and uploaded once per (model, dtype, device).
+
+Both kernels give a robot to four threads, one per leg, and keep the
+contact rows of the model's slots in dynamic shared memory.
+``launch_geometry`` chooses the block size, the grid and the shared bytes
+of a launch from the model's slot count and the type; the C launch
+functions take them as arguments.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,6 +61,22 @@ _SENSOR_DIMS = {SENSOR_JOINTPOS: 1, SENSOR_ACCELEROMETER: 3, SENSOR_GYRO: 3,
                 SENSOR_FRAMEPOS: 3, SENSOR_FRAMELINVEL: 3,
                 SENSOR_FRAMEXAXIS: 3, SENSOR_FRAMEZAXIS: 3,
                 SENSOR_VELOCIMETER: 3}
+
+# Launch limits. The first four mirror csrc/leg_step.cuh (values a contact
+# slot keeps per thread) and csrc/launch.cuh (the kernels'
+# __launch_bounds__: largest block, blocks an SM must hold of it);
+# the rest are the H100's: SMs, dynamic shared memory a block may ask for
+# (227 KB), and the shared memory of an SM (228 KB), of which each resident
+# block costs 1 KB besides its own.
+ROW_VALS = 40
+MAX_SLOTS = 3 * MAX_GROUPS
+MAX_THREADS = 128
+MIN_BLOCKS = 2
+SM_COUNT = 132
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_PER_SM = 228 * 1024
+SMEM_BLOCK_RESERVED = 1024
+WARP = 32
 
 # launches of each kernel wrapper; a run sets them to 0 and reads them
 launch_counts = {"fused_rollout_cost": 0, "substep": 0}
@@ -175,6 +197,21 @@ def _pack_sensors(m: PhysicsModel, P) -> None:
             "the sensors do not tile sensordata exactly once")
 
 
+def slot_budgets(m: PhysicsModel) -> list:
+    """Contact slots per leg of each collision group, in group order."""
+    return [LE._slot_budget(np.asarray(m.col_hull_verts[group[0]], np.float64),
+                            float(m.col_theta2[group[0]]),
+                            float(m.col_theta3[group[0]]))
+            for _, group in LE._leg_static(m).col_groups]
+
+
+def model_slots(m: PhysicsModel) -> int:
+    """Contact slots per leg over all groups: what sizes a launch's rows."""
+    if "_cuda_model_slots" not in m.__dict__:
+        m.__dict__["_cuda_model_slots"] = sum(slot_budgets(m))
+    return m.__dict__["_cuda_model_slots"]
+
+
 def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
     """The model's constants as a ``LegModel`` struct of ``dtype``."""
     ls = LE._leg_static(m)
@@ -242,6 +279,7 @@ def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
             f"{len(groups)} collision groups; the kernel takes {MAX_GROUPS}")
     vstart = 0
     P.ngroup = len(groups)
+    budgets = slot_budgets(m)
     for g, (level, group) in enumerate(groups):
         g0 = group[0]
         verts = np.asarray(m.col_hull_verts[g0], np.float64)
@@ -250,8 +288,7 @@ def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
             raise LE.IncompatibleModelError(
                 f"more than {MAX_VERTS} hull vertices in all")
         P.grp_level[g] = level
-        P.grp_nslot[g] = LE._slot_budget(verts, float(m.col_theta2[g0]),
-                                         float(m.col_theta3[g0]))
+        P.grp_nslot[g] = budgets[g]
         P.grp_vstart[g] = vstart
         P.grp_nvert[g] = V
         for c in range(3):
@@ -289,6 +326,88 @@ def _model_buffer(m: PhysicsModel, dtype, device) -> torch.Tensor:
         cache[key] = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(
             device)
     return cache[key]
+
+
+# --------------------------------------------------------------------------
+# launch geometry
+
+
+class LaunchGeometry(NamedTuple):
+    grid: int        # blocks
+    threads: int     # threads per block, 4 per robot
+    smem_bytes: int  # dynamic shared memory per block: the contact rows
+
+
+def resident_blocks(threads: int, smem_bytes: int) -> int:
+    """Blocks of ``threads`` and ``smem_bytes`` an SM holds together, by
+    its shared memory and by the register cap of the kernels' launch
+    bounds (what ptxas actually used can only allow more)."""
+    by_smem = SMEM_PER_SM // (smem_bytes + SMEM_BLOCK_RESERVED)
+    by_regs = MAX_THREADS * MIN_BLOCKS // threads
+    return min(by_smem, by_regs, 32)
+
+
+def launch_geometry(nslot: int, dtype: torch.dtype, n: int) -> LaunchGeometry:
+    """Block size, grid and dynamic shared bytes for ``n`` robots (rollouts
+    or lanes) of a model with ``nslot`` contact slots per leg.
+
+    A robot takes 4 threads and a thread ``ROW_VALS * nslot`` values of
+    shared memory. Of the block sizes (multiples of a warp up to the
+    kernels' launch bound) whose rows fit the 227 KB a block may have,
+    take one whose grid covers every SM if there is one, and among those
+    the one that keeps most threads resident on an SM, the smaller block
+    on a tie; if none covers the card, the smallest. A small batch thus
+    gets small blocks and spreads over the SMs.
+    A model whose rows do not fit even one warp is refused."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the kernels take float32/float64, got {dtype}")
+    if n < 1:
+        raise ValueError("a launch needs at least one robot")
+    if not 0 <= nslot <= MAX_SLOTS:
+        raise LE.IncompatibleModelError(
+            f"{nslot} contact slots per leg; the kernels take {MAX_SLOTS}")
+    per_thread = ROW_VALS * nslot * torch.empty((), dtype=dtype).element_size()
+    best, best_key = None, None
+    for threads in range(WARP, MAX_THREADS + 1, WARP):
+        smem = threads * per_thread
+        if smem > SMEM_PER_BLOCK:
+            break
+        grid = -(-4 * n // threads)
+        resident = threads * resident_blocks(threads, smem)
+        covers = grid >= SM_COUNT
+        key = (covers, resident if covers else 0, -threads)
+        if best_key is None or key > best_key:
+            best, best_key = LaunchGeometry(grid, threads, smem), key
+    if best is None:
+        raise LE.IncompatibleModelError(
+            f"the contact rows of {nslot} slots take {WARP * per_thread} "
+            f"bytes for one warp; a block has {SMEM_PER_BLOCK}")
+    return best
+
+
+def _check_launch(err: int, what: str, geo: LaunchGeometry) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: CUDA error {err} (grid {geo.grid}, "
+            f"{geo.threads} threads, {geo.smem_bytes} bytes of dynamic "
+            "shared memory a block)")
+
+
+def kernel_info(source: str, dtype: torch.dtype, threads: int,
+                smem_bytes: int) -> dict:
+    """What the CUDA runtime reports for the built kernel of ``source`` at
+    a block size and dynamic shared size: registers per thread, local
+    (stack and spill) bytes per thread, resident blocks per SM. Needs a
+    card."""
+    lib = _library(source, dtype)
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.qg_kernel_info(threads, smem_bytes, ctypes.byref(regs),
+                             ctypes.byref(local), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"kernel_info({source}): CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": blocks.value, "threads": threads,
+            "smem_bytes": smem_bytes}
 
 
 # --------------------------------------------------------------------------
@@ -348,15 +467,18 @@ def _library(source: str, dtype: torch.dtype) -> ctypes.CDLL:
     if not getattr(lib, "_qg_bound", False):
         lib.qg_model_size.restype = ctypes.c_int
         lib.qg_model_size.argtypes = []
+        lib.qg_kernel_info.restype = ctypes.c_int
+        lib.qg_kernel_info.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
         if source == KERNEL_SOURCE:
             lib.qg_fused_rollout.restype = ctypes.c_int
             lib.qg_fused_rollout.argtypes = (
                 [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                + [ctypes.c_double, ctypes.c_void_p])
+                + [ctypes.c_double] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         else:
             lib.qg_substeps.restype = ctypes.c_int
             lib.qg_substeps.argtypes = (
-                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
                 + [ctypes.c_void_p])
         size = lib.qg_model_size()
         if size != ctypes.sizeof(model_struct(dtype)):
@@ -426,6 +548,7 @@ def fused_rollout_cost(
     cmd_scal = command_scalars(cmd, dt).to(dev).contiguous()
     lanes = _dp_lanes(dp, S, dt, dev)
     model = _model_buffer(m, dt, dev)
+    geo = launch_geometry(model_slots(m), dt, S)
     lib = _library(KERNEL_SOURCE, dt)
     out = torch.empty(S, dtype=dt, device=dev)
     err = lib.qg_fused_rollout(
@@ -433,9 +556,8 @@ def fused_rollout_cost(
         seqs.data_ptr(), prev.data_ptr(), cmd_scal.data_ptr(),
         *[0 if v is None else v.data_ptr() for v in lanes],
         out.data_ptr(), S, H, frame_skip, solver_iterations, ls_iterations,
-        float(height), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_rollout_cost launch failed: CUDA error {err}")
+        float(height), *geo, torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(err, "fused_rollout_cost", geo)
     launch_counts["fused_rollout_cost"] += 1
     return out
 
@@ -469,7 +591,9 @@ def control_step_reference(m: PhysicsModel, ls: LaneState,
 
 
 def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
-                     compute_sensors) -> LaneState:
+                     compute_sensors, geometry=None) -> LaneState:
+    """Check, allocate and launch. ``geometry`` overrides
+    ``launch_geometry``'s choice (a check of a refused launch uses it)."""
     dev, dt = ls.qpos.device, ls.qpos.dtype
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -495,6 +619,7 @@ def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
         raise ValueError(f"time must have shape ({B},)")
     lanes = _dp_lanes(dp, B, dt, dev)
     model = _model_buffer(m, dt, dev)
+    geo = geometry or launch_geometry(model_slots(m), dt, B)
     lib = _library(SUBSTEP_SOURCE, dt)
     qpos_o, qvel_o, act_o = (torch.empty_like(x) for x in (qpos, qvel, act))
     sens_o = torch.empty((m.nsensordata, B), dtype=dt, device=dev)
@@ -503,9 +628,9 @@ def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
         ctrl.data_ptr(), *[0 if v is None else v.data_ptr() for v in lanes],
         qpos_o.data_ptr(), qvel_o.data_ptr(), act_o.data_ptr(),
         sens_o.data_ptr(), B, nsub, solver_iterations, ls_iterations,
-        int(bool(compute_sensors)), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"substep kernel launch failed: CUDA error {err}")
+        int(bool(compute_sensors)), *geo,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(err, "substep kernel", geo)
     launch_counts["substep"] += 1
     time = ls.time
     for _ in range(nsub):  # as the plain version adds it, substep by substep
@@ -536,7 +661,8 @@ def control_step(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
                  dp: Optional[DomainParams] = None) -> LaneState:
     """``frame_skip`` substeps under constant control with the sensors of
     the last, in ONE kernel launch: the state stays in registers between
-    the substeps. CPU tensors go to the plain version."""
+    the substeps. CPU tensors go to the plain version; CUDA tensors to the
+    kernel, which raises rather than fall back."""
     if ls.qpos.device.type == "cpu":
         return control_step_reference(m, ls, ctrl, frame_skip,
                                       solver_iterations, ls_iterations, dp)

@@ -197,7 +197,11 @@ def host_lib(tmp_path_factory):
     return torch_host_lib.build(tmp_path_factory.mktemp("host"))
 
 
-def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None):
+def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None,
+                  quad=False):
+    """The kernels' rollout body built for the host: one thread a robot,
+    or with ``quad`` the one-leg form the card runs (four threads a
+    robot), whose four copies of each cost must agree in every bit."""
     dt = seqs.dtype
     P = cuda_engine.pack_model(m, dt)
     S = seqs.shape[0]
@@ -210,11 +214,14 @@ def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None):
     seq = seqs.permute(1, 2, 0).contiguous()
     cs = cuda_engine.command_scalars(cmd, dt).contiguous()
     out = torch.empty(S, dtype=dt)
-    fn = lib.qg_host_rollout_f64 if dt == torch.float64 else \
-        lib.qg_host_rollout_f32
-    fn(ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
-       vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
-       ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13)
+    name = "qg_host_{}rollout_{}".format(
+        "quad_" if quad else "", "f64" if dt == torch.float64 else "f32")
+    differ = getattr(lib, name)(
+        ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
+        vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
+        ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13)
+    if quad:
+        assert differ == 0, f"{differ} costs differ within their quad"
     return out
 
 
@@ -292,6 +299,38 @@ def test_host_rollout_float32(host_lib, name, budget):
     got = _host_rollout(host_lib, m, st, seqs, cmd, prev, 5, *budget)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("name,kind,H,fs,with_dp,dtype", [
+    ("planning", "grounded", 2, 3, False, torch.float64),
+    ("planning", "airborne", 1, 2, True, torch.float64),
+    ("fast_plant", "grounded", 1, 2, True, torch.float64),
+    ("fast_plant", "grounded", 1, 2, False, torch.float32),
+])
+def test_host_quad_rollout_matches_whole_robot_form(host_lib, name, kind, H,
+                                                    fs, with_dp, dtype):
+    """The one-leg form (a quad of threads per robot, the legs' sums by
+    two exchange steps, the rows strided by the block) is the whole-robot
+    form with the same operations in the same order: equal in every bit,
+    and so as close to the plain version."""
+    m = _model(name)
+    S = 5
+    st, seqs, cmd, prev = _inputs(m, kind, S, H, seed=3 * H + fs, dtype=dtype)
+    dp = None
+    if with_dp:
+        dp = spec.sample_domain_params(
+            torch.Generator().manual_seed(2), S, friction_range=(0.4, 0.8),
+            gain_range=(0.8, 1.2), mass_range=(0.9, 1.5),
+            tilt_range=(-0.1, 0.1), terrain_amp_range=(0.0, 0.02),
+            dtype=dtype)
+    whole = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
+    quad = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp,
+                         quad=True)
+    np.testing.assert_array_equal(quad.numpy(), whole.numpy())
+    ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, fs,
+                                                   4, 8, dp=dp)
+    tol = 1e-8 if dtype == torch.float64 else 1e-4
+    np.testing.assert_allclose(quad.numpy(), ref.numpy(), rtol=tol, atol=tol)
 
 
 # --------------------------------------------------------------------------

@@ -227,7 +227,10 @@ def host_lib(tmp_path_factory):
 
 
 def _host_substeps(lib, m, ls, ctrl, nsub, it, lsi, dp=None,
-                   compute_sensors=True):
+                   compute_sensors=True, quad=False, n_store=None):
+    """The substep kernel's body built for the host: one thread a robot,
+    or with ``quad`` the one-leg form the card runs (four threads a
+    robot), where lanes from ``n_store`` on run but store nothing."""
     dt = ls.qpos.dtype
     P = cuda_engine.pack_model(m, dt)
     n = ls.qpos.shape[1]
@@ -239,11 +242,13 @@ def _host_substeps(lib, m, ls, ctrl, nsub, it, lsi, dp=None,
     ins = [x.contiguous() for x in (ls.qpos, ls.qvel, ls.act, ctrl.to(dt))]
     outs = [torch.full_like(x, float("nan")) for x in ins[:3]]
     sens = torch.full((m.nsensordata, n), float("nan"), dtype=dt)
-    fn = lib.qg_host_substeps_f64 if dt == torch.float64 else \
-        lib.qg_host_substeps_f32
-    fn(ctypes.addressof(P), *[x.data_ptr() for x in ins], ptrs,
-       *[x.data_ptr() for x in outs], sens.data_ptr(), n, nsub, it, lsi,
-       int(compute_sensors))
+    name = "qg_host_{}substeps_{}".format(
+        "quad_" if quad else "", "f64" if dt == torch.float64 else "f32")
+    sizes = (n, n if n_store is None else n_store) if quad else (n,)
+    getattr(lib, name)(
+        ctypes.addressof(P), *[x.data_ptr() for x in ins], ptrs,
+        *[x.data_ptr() for x in outs], sens.data_ptr(), *sizes, nsub, it, lsi,
+        int(compute_sensors))
     return outs[0], outs[1], outs[2], sens
 
 
@@ -310,3 +315,30 @@ def test_host_substeps_float32(host_lib, name, kind, budget):
     for g, f in zip(got, ("qpos", "qvel", "act", "sensordata")):
         np.testing.assert_allclose(g.numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=f)
+
+
+@pytest.mark.parametrize("name,kind,nsub,with_dp,sensors,dtype", [
+    ("planning", "grounded", 2, True, True, torch.float64),
+    ("planning", "grounded", 1, False, False, torch.float64),
+    ("fast_plant", "low", 2, False, True, torch.float64),
+    ("fast_plant", "low", 2, True, True, torch.float32),
+])
+def test_host_quad_substeps_match_whole_robot_form(host_lib, name, kind, nsub,
+                                                   with_dp, sensors, dtype):
+    """The one-leg form the card runs (a quad of threads per lane: the
+    base rows and base-site sensors written by the thread of leg 0, each
+    joint's rows and position sensor by its leg's thread) against the
+    whole-robot form: the same operations in the same order, so equal in
+    every bit. The last two lanes run but must store nothing, as threads
+    past the ragged edge of a block do."""
+    n, keep = 6, 4
+    tm, ls, ctrl, dp = _lane_inputs(name, kind, 23 + nsub, dtype, n, with_dp)
+    whole = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors)
+    quad = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors,
+                          quad=True, n_store=keep)
+    for w, q in zip(whole, quad):
+        np.testing.assert_array_equal(q[:, :keep].numpy(),
+                                      w[:, :keep].numpy())
+        assert bool(torch.isnan(q[:, keep:]).all())
+    if not sensors:
+        assert float(quad[3][:, :keep].abs().max()) == 0.0
