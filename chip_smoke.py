@@ -15,7 +15,12 @@ Phases, each of which raises on failure (nothing is caught):
    the same inputs, at the tolerances stated below: the fused rollout's
    costs, and the substep kernel's qpos, qvel, act and all 33 sensors;
    widths the block size does not divide included. A launch the card
-   must refuse (too much shared memory) has to raise.
+   must refuse (too much shared memory) has to raise. The oracle engine
+   (plain PyTorch, no kernel): ``physics.engine.step`` on the card
+   against the CPU in float64 (a state in contact and one in the air,
+   1e-9), in float32 with the base far from the world origin against
+   float64, and its float32 products are true FP32 even while the
+   process-wide TF32 flag is on.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -30,13 +35,24 @@ Phases, each of which raises on failure (nothing is caught):
 6. env: the batched walking env at the width PPO uses: 2,048 envs on the
    fast-plant model, partial observation over 10 frames, ``reset`` and 50
    ``batched_autoreset_step(engine_impl="pallas")`` under random actions.
-7. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+7. loop: the closed loop at the width of the JAX package's
+   ``examples/closed_loop_walk.py``: MPPI (1,024 samples, H=20, 2
+   iterations, fused kernel) on the planning model driving the oracle
+   engine on the ``mpc_plant`` model (feet, shins and ankle servos with
+   full hulls) for 200 control steps of ``closed_loop`` under a 0.15 m/s
+   forward command, float32. The walk must be finite, upright and go
+   forward (limits at ``WALK_LIMITS``). Then 20 steps of
+   ``delayed_closed_loop`` with the oracle plant and 20 with the
+   leg-engine plant, the period's split into plan and plant, timed
+   with a synchronise after each part, and one traced call of each
+   (``torch.profiler``): the kernels the card ran and its idle share.
+8. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; the custom-cost solve and the env's steps/s as phases 5 and 6
    measured them.
 
-Phases 4, 5 and 6 each set the launch counters to 0 just before driving
+Phases 4 to 7 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -55,7 +71,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "check", "main", "plan", "env", "time")
+PHASES = ("device", "build", "check", "main", "plan", "env", "loop", "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -73,6 +89,17 @@ F64_TOL = 1e-8
 F32_TOL = 1e-4
 ROLLOUT = "fused_rollout_cost"
 SUBSTEP = "substep"
+# the oracle engine on the card against the CPU, float64, one substep
+ORACLE_F64_TOL = 1e-9
+# the closed-loop walk: 200 control steps = 2 s of simulated time under a
+# 0.15 m/s command. The JAX package's example typically travels ~0.32 m
+# forward with < 3 cm of drift and uprightness > 0.98; the noise streams
+# differ, so the limits are loose.
+WALK_STEPS = 200
+WALK_SPEED = 0.15
+WALK_LIMITS = {"forward_m": 0.15, "sideways_m": 0.10, "upright": 0.9}
+DELAYED_STEPS = 20
+SPLIT_PERIODS = 5
 
 
 def log(*args):
@@ -330,6 +357,10 @@ def phase_check(rec):
     # the main path's width, type and budget; H cut to one control step
     # because grounded rollouts diverge chaotically across bit-different
     # programs over longer horizons
+    # the closed loop's planner launches the same kernel at its own width
+    # and budget (fewer blocks than the card has SMs): taken from the
+    # loop's configuration so the two cannot drift apart
+    walk = walk_config().mppi
     rec["max_abs_err_main_shape"] = max(
         check_case(rec, "f32 planning grounded (main-path width)",
                    "planning", "grounded", S_MAIN, 1, FRAME_SKIP,
@@ -337,6 +368,16 @@ def phase_check(rec):
         check_case(rec, "f32 fast_plant grounded (main-path width)",
                    "fast_plant", "grounded", S_MAIN, 1, FRAME_SKIP,
                    BUDGET["fast_plant"], f32, F32_TOL, seed=6),
+        check_case(rec, "f32 planning grounded (loop width)",
+                   "planning", "grounded", walk.num_samples, 1,
+                   walk.rollout.frame_skip,
+                   (walk.lane_newton_iterations, walk.lane_ls_iterations),
+                   f32, F32_TOL, seed=8),
+        check_case(rec, "f32 planning airborne (loop width and horizon)",
+                   "planning", "airborne", walk.num_samples,
+                   walk.rollout.horizon, walk.rollout.frame_skip,
+                   (walk.lane_newton_iterations, walk.lane_ls_iterations),
+                   f32, F32_TOL, seed=9),
     )
     # the substep kernel: float64 at B around 4,096 (one B that 128 does
     # not divide), then float32 at the widths of its two main paths
@@ -363,6 +404,133 @@ def phase_check(rec):
                       BUDGET["fast_plant"], f32, F32_TOL, seed=18),
     )
     check_refused_launch(rec)
+    check_oracle(rec)
+
+
+def oracle_states(m, dtype, device):
+    """Two start states of the oracle engine and a control, made on the
+    CPU in float64 from a seed: the robot on its feet and moving (the
+    reset state hangs 10 cm above the floor, so it is dropped for 0.4 s
+    first), and in the air, tilted, 6 m up and 50 m from the world
+    origin."""
+    from quadruped_gym_tpu_torch.physics import engine
+
+    rng = np.random.default_rng(20)
+    f64 = torch.float64
+    centers = torch.tensor([0.0, 0.0, -0.5] * 4, dtype=f64)
+    st = engine.make_state(m, dtype=f64, device="cpu")
+    st = engine.control_step(m, st, centers, 200, max_contacts=12,
+                             solver_iterations=4)
+    contact = st._replace(
+        qvel=st.qvel + 0.2 * torch.as_tensor(rng.standard_normal(m.nv)))
+    qpos = st.qpos.clone()
+    qpos[:3] = torch.tensor([40.0, -30.0, 6.0], dtype=f64)
+    quat = rng.standard_normal(4)
+    qpos[3:7] = torch.as_tensor(quat / np.linalg.norm(quat))
+    qpos[7:] += 0.2 * torch.as_tensor(rng.standard_normal(m.nq - 7))
+    airborne = st._replace(
+        qpos=qpos, qvel=torch.as_tensor(0.5 * rng.standard_normal(m.nv)))
+    ctrl = torch.as_tensor(rng.uniform(-1.0, 1.0, m.nu))
+
+    def to(x):
+        return type(x)(*(v.to(device=device, dtype=dtype) for v in x))
+
+    return {"contact": to(contact), "airborne": to(airborne)}, ctrl.to(
+        device=device, dtype=dtype)
+
+
+def check_oracle(rec):
+    """The oracle engine is plain PyTorch: the card must compute what the
+    CPU computes (float64), stay accurate in float32 far from the world
+    origin, and never drop to TF32."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.physics import engine, maths
+
+    dev = torch.device("cuda")
+    f64, f32 = torch.float64, torch.float32
+    m = spec.get_mpc_plant_model()
+    kw = dict(max_contacts=12, solver_iterations=4)
+    on_cpu, ctrl_cpu = oracle_states(m, f64, "cpu")
+    errs = {}
+    for kind, st in on_cpu.items():
+        want = engine.step(m, st, ctrl_cpu, **kw)
+        ncon = int(engine.forward(m, st, ctrl_cpu, **kw).ncon_active)
+        if (ncon > 0) != (kind == "contact"):
+            raise AssertionError(f"oracle {kind}: {ncon} active rows")
+        got = engine.step(m, type(st)(*(v.to(dev) for v in st)),
+                          ctrl_cpu.to(dev), **kw)
+        for f in got._fields:
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            if g.dtype != f64 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"oracle {kind}: {f} not finite float64")
+            err = (g - w).abs()
+            if bool((err > ORACLE_F64_TOL + ORACLE_F64_TOL * w.abs()).any()):
+                raise AssertionError(
+                    f"oracle {kind}: {f} on the card differs from the CPU "
+                    f"by {float(err.max()):.3e}")
+            errs[f"{kind} {f}"] = float(err.max())
+        log(f"check oracle engine.step f64 {kind} ({ncon} active rows): "
+            "card vs CPU max_abs_err "
+            + " ".join(f"{f} {errs[f'{kind} {f}']:.2e}" for f in got._fields)
+            + f" (rtol=atol={ORACLE_F64_TOL:g})")
+
+    # float32, 6 m up and 50 m out, against float64 on the card: spatial
+    # vectors are measured from the base, so float32 rounding (6e-8 of
+    # values near 1) is all there is; measured from the world origin the
+    # mass matrix alone would be off by ~m|p|^2 * 6e-8 ~ 1e-4 of 2500.
+    st64 = type(on_cpu["airborne"])(*(v.to(dev) for v in on_cpu["airborne"]))
+    want = engine.step(m, st64, ctrl_cpu.to(dev), **kw)
+    st32 = type(st64)(*(v.to(f32) for v in st64))
+    ctrl32 = ctrl_cpu.to(device=dev, dtype=f32)
+    got = engine.step(m, st32, ctrl32, **kw)
+    acc = slice(m.sensor_adr("body_accel"), m.sensor_adr("body_accel") + 3)
+    far = {"qvel": (got.qvel, want.qvel, 5e-4),
+           "qpos": (got.qpos, want.qpos, 1e-5),
+           "body_accel": (got.sensordata[acc], want.sensordata[acc], 5e-3)}
+    for name, (g, w, tol) in far.items():
+        if g.dtype != f32:
+            raise AssertionError(f"oracle f32: {name} is {g.dtype}")
+        err = float((g.double() - w).abs().max())
+        errs[f"f32 far {name}"] = err
+        if not err <= tol * (1.0 + float(w.abs().max())):
+            raise AssertionError(f"oracle f32 far from the origin: {name} "
+                                 f"off by {err:.3e} (tolerance {tol:g})")
+    log("check oracle engine.step f32 at (40, -30, 6) m vs f64: max_abs_err "
+        + " ".join(f"{k} {errs[f'f32 far {k}']:.2e} (tol {far[k][2]:g} "
+                   "relative to 1 + max|x|)" for k in far))
+
+    # true FP32 whatever the process-wide flag says: with the flag ON a
+    # bare matmul is TF32 (logged, to show the flag bites on this card),
+    # inside the engine's context it is FP32, and a whole step is the
+    # same in every bit with the flag on and off
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    a = torch.randn((512, 512), generator=gen, device=dev, dtype=f32)
+    b = torch.randn((512, 512), generator=gen, device=dev, dtype=f32)
+    ref = a.double() @ b.double()
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        bare = float(((a @ b).double() - ref).abs().max() / ref.abs().max())
+        with maths.true_fp32():
+            kept = float(((a @ b).double() - ref).abs().max()
+                         / ref.abs().max())
+        flagged = engine.step(m, st32, ctrl32, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    same = all(bool(torch.equal(x, y)) for x, y in zip(flagged, got))
+    log(f"check oracle true FP32: with allow_tf32=True a bare 512x512 "
+        f"matmul is off by {bare:.2e} of max|ref|, inside maths.true_fp32() "
+        f"by {kept:.2e}; engine.step with the flag on equals the flag off "
+        f"in every bit: {same}")
+    if not kept < 1e-6:
+        raise AssertionError(f"float32 matmul inside true_fp32() is off by "
+                             f"{kept:.2e}: not FP32")
+    if not same:
+        raise AssertionError("engine.step changes with allow_tf32: its "
+                             "float32 products are not pinned to FP32")
+    rec["oracle_check"] = dict(errs, tf32_bare_rel_err=bare,
+                               fp32_kept_rel_err=kept)
 
 
 def check_refused_launch(rec):
@@ -480,7 +648,9 @@ def phase_main(rec, periods=3):
             and bool(torch.isfinite(fcarry.mean).all())):
         raise AssertionError("fast-plant solve: non-finite cost or plan")
     log(f"main fast_plant solve: best_cost {float(info['best_cost']):.4f}")
-    rec.setdefault("launches", {})[ROLLOUT] = planning_launches + fast_launches
+    counts = rec.setdefault("launches", {})
+    counts[ROLLOUT] = (counts.get(ROLLOUT, 0) + planning_launches
+                       + fast_launches)
     log(f"main: fused_rollout_cost launches {planning_launches} "
         f"(planning, {periods} periods) + {fast_launches} (fast plant); "
         f"{rec['main_s']:.2f} s for the planning periods "
@@ -610,7 +780,7 @@ def phase_env(rec, steps=50, warm=10):
                                 partial_obs=True, obs_window=10,
                                 random_controls=True, random_init=True,
                                 dtype=dt)
-    env = VectorWalkingEnv(m, cfg, N_ENVS, seed=4)
+    env = VectorWalkingEnv(m, cfg, N_ENVS, lane_physics=True, seed=4)
     state, obs = env.reset()
     if obs.device.type != dev.type or obs.shape != (N_ENVS, 260):
         raise AssertionError(f"reset obs {tuple(obs.shape)} on {obs.device}")
@@ -667,6 +837,249 @@ def phase_env(rec, steps=50, warm=10):
         f"{rec['env_step_ms']:.3f} ms per step over the last "
         f"{steps - warm} steps (host clock, one synchronise at the end); "
         f"card: {rec['card']}")
+
+
+def walk_config():
+    """The planner and plant budgets of the JAX package's
+    ``examples/closed_loop_walk.py``."""
+    from quadruped_gym_tpu_torch.runtime.mpc_runtime import MPCConfig
+    from quadruped_gym_tpu_torch.solvers.mppi import MPPIConfig
+    from quadruped_gym_tpu_torch.solvers.rollout import RolloutConfig
+
+    return MPCConfig(
+        solver="mppi",
+        mppi=MPPIConfig(
+            num_samples=1024, sigma=0.25, temperature=0.5, iterations=2,
+            lane=True, lane_engine_impl="fused",
+            rollout=RolloutConfig(horizon=20, frame_skip=5)),
+        plant_frame_skip=5, plant_max_contacts=12, plant_solver_iterations=4)
+
+
+def walk_setup(device, seed):
+    """(planning model, plant model, config, cost, command, carry, state)
+    of the closed-loop walk on ``device``, float32."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.physics.engine import make_state
+    from quadruped_gym_tpu_torch.runtime import mpc_runtime
+    from quadruped_gym_tpu_torch.solvers.rollout import make_cost_fn
+
+    dt = torch.float32
+    pm, plant = spec.get_planning_model(), spec.get_mpc_plant_model()
+    cfg = walk_config()
+    cmd = command(dt, device, WALK_SPEED, 0.0, 0.0)
+    carry = mpc_runtime.init_carry(pm, cfg, cfg.rollout.horizon, seed=seed,
+                                   dtype=dt, device=device)
+    phys = make_state(plant, dtype=dt, device=device)
+    return pm, plant, cfg, make_cost_fn(pm), cmd, carry, phys
+
+
+def walk_summary(pm, ctrls, sens, costs, n_steps, wall_s):
+    """The example's five summary lines and the numbers the limits read;
+    raises unless the walk is finite, upright and went forward."""
+    from quadruped_gym_tpu_torch.tasks.rewards import SensorSlices
+
+    for name, x in (("controls", ctrls), ("sensors", sens),
+                    ("costs", costs)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"walk: non-finite {name}")
+    sl = SensorSlices.from_model(pm)
+    sens = sens.double().cpu().numpy()
+    pos = sens[:, sl.pos:sl.pos + 3]
+    vel = sens[:, sl.vel:sl.vel + 2]
+    z = sens[:, sl.zaxis + 2]
+    warm = n_steps // 4
+    out = {"steps": n_steps, "wall_s": wall_s,
+           "forward_m": float(pos[-1][0]), "sideways_m": float(pos[-1][1]),
+           "mean_vx": float(vel[warm:, 0].mean()),
+           "mean_abs_vy": float(np.abs(vel[warm:, 1]).mean()),
+           "upright_min": float(z.min()),
+           "height_min": float(pos[:, 2].min()),
+           "height_max": float(pos[:, 2].max())}
+    log(f"walk: done in {wall_s:.1f} s wall ({n_steps} control steps, "
+        f"{n_steps * 5 * pm.timestep:.1f} s simulated)")
+    log(f"walk: commanded +x {WALK_SPEED} m/s; traveled "
+        f"({out['forward_m']:+.3f}, {out['sideways_m']:+.3f}) m")
+    log(f"walk: mean local vx after warmup {out['mean_vx']:+.3f}, "
+        f"mean |vy| {out['mean_abs_vy']:.3f}")
+    log(f"walk: uprightness min {out['upright_min']:.3f} "
+        f"(never flipped: {out['upright_min'] > 0})")
+    log(f"walk: body height {out['height_min']:.3f} - "
+        f"{out['height_max']:.3f} m")
+    if not out["upright_min"] > WALK_LIMITS["upright"]:
+        raise AssertionError(f"walk: uprightness {out['upright_min']:.3f}")
+    if not out["forward_m"] > WALK_LIMITS["forward_m"]:
+        raise AssertionError(f"walk: only {out['forward_m']:.3f} m forward")
+    if not abs(out["sideways_m"]) < WALK_LIMITS["sideways_m"]:
+        raise AssertionError(f"walk: {out['sideways_m']:.3f} m sideways")
+    return out
+
+
+def run_walk(device, n_steps, seed=0):
+    """``closed_loop`` for ``n_steps`` on the card: the summary dict, and
+    the carry and plant state it ended in."""
+    from quadruped_gym_tpu_torch.runtime import mpc_runtime
+
+    pm, plant, cfg, cost_fn, cmd, carry, phys = walk_setup(device, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, phys, (ctrls, sens, costs) = mpc_runtime.closed_loop(
+        pm, cfg, cost_fn, carry, phys, cmd, n_steps, plant_model=plant)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ctrls.shape != (n_steps, 12) or sens.shape != (n_steps, 33):
+        raise AssertionError("walk: wrong trajectory shapes")
+    out = walk_summary(pm, ctrls, sens, costs, n_steps, wall)
+    return out, carry, phys
+
+
+def phase_loop(rec):
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics import engine
+    from quadruped_gym_tpu_torch.runtime import mpc_runtime
+
+    dev = torch.device("cuda")
+    iters = walk_config().mppi.iterations
+
+    def counted(tag, steps):
+        got = (cuda_engine.launch_counts[ROLLOUT],
+               cuda_engine.launch_counts[SUBSTEP])
+        if got != (steps * iters, 0):
+            raise AssertionError(
+                f"{tag}: {got[0]} fused and {got[1]} substep launches in "
+                f"{steps} steps of {iters} iterations (want {steps * iters} "
+                "and 0)")
+        counts = rec.setdefault("launches", {})
+        counts[ROLLOUT] = counts.get(ROLLOUT, 0) + got[0]
+        return got[0]
+
+    # 1. the walk
+    cuda_engine.reset_launch_counts()
+    walk, carry, phys = run_walk(dev, WALK_STEPS)
+    n = counted("closed_loop", WALK_STEPS)
+    walk["period_s"] = walk["wall_s"] / WALK_STEPS
+    log(f"loop: closed_loop {WALK_STEPS} steps, {n} fused_rollout_cost "
+        f"launches, 0 substep launches; {walk['period_s']:.4f} s per control "
+        f"period (host clock, one synchronise at the end); card: "
+        f"{rec['card']}")
+    rec["walk"] = walk
+
+    # 2. the delayed loop from the same start, oracle plant and lane plant
+    rec["delayed"] = {}
+    for plant_engine in ("aos", "lane"):
+        pm, plant, cfg, cost_fn, cmd, carry0, phys0 = walk_setup(dev, seed=1)
+        cuda_engine.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, end, (ctrls, sens, costs) = mpc_runtime.delayed_closed_loop(
+            pm, cfg, cost_fn, carry0, phys0, cmd, DELAYED_STEPS,
+            plant_model=plant, predictor="auto", plant_engine=plant_engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted(f"delayed_closed_loop plant_engine={plant_engine}",
+                DELAYED_STEPS)
+        if not bool((ctrls[0] == carry0.prev_ctrl).all()):
+            raise AssertionError("delayed loop: step 0 did not apply the "
+                                 "standing control")
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (ctrls, sens, costs, end.qpos, end.qvel)):
+            raise AssertionError("delayed loop: non-finite values")
+        if not float(end.qpos[2]) > 0.03:
+            raise AssertionError("delayed loop: the robot fell through")
+        rec["delayed"][plant_engine] = {"period_s": wall / DELAYED_STEPS,
+                                        "base_z": float(end.qpos[2])}
+        log(f"loop: delayed_closed_loop {DELAYED_STEPS} steps, predictor "
+            f"auto (lane), plant_engine {plant_engine}: step 0 applied the "
+            f"standing control; {wall / DELAYED_STEPS:.4f} s per period "
+            f"(predict + plan + plant; host clock); base z "
+            f"{float(end.qpos[2]):.4f}; card: {rec['card']}")
+
+    # 3. the period's parts, each followed by a synchronise, going on from
+    # where the walk ended (not part of the counted run)
+    pm, plant, cfg, cost_fn, cmd, _, _ = walk_setup(dev, seed=0)
+    parts = {"plan_and_act": [], "oracle_control_step": [],
+             "lane_control_step": []}
+    lane_phys = phys
+    for _ in range(SPLIT_PERIODS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl, carry, _ = mpc_runtime.plan_and_act(pm, cfg, cost_fn, carry,
+                                                  phys, cmd)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        phys = engine.control_step(
+            plant, phys, ctrl, cfg.plant_frame_skip,
+            max_contacts=cfg.plant_max_contacts,
+            solver_iterations=cfg.plant_solver_iterations)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lane_phys = mpc_runtime.lane_control_step(
+            plant, lane_phys, ctrl, cfg.plant_frame_skip,
+            solver_iterations=cfg.plant_solver_iterations,
+            ls_iterations=2 * cfg.plant_solver_iterations)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts["plan_and_act"].append(t1 - t0)
+        parts["oracle_control_step"].append(t2 - t1)
+        parts["lane_control_step"].append(t3 - t2)
+    split = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    fs = cfg.plant_frame_skip
+    rec["loop_split"] = dict(
+        split, each=parts,
+        oracle_substep_ms=1e3 * split["oracle_control_step"] / fs,
+        lane_substep_ms=1e3 * split["lane_control_step"] / fs)
+    log(f"loop split (median of {SPLIT_PERIODS} periods after the first, "
+        f"host clock, synchronised after each part): plan_and_act "
+        f"{split['plan_and_act']:.4f} s; oracle control_step "
+        f"{split['oracle_control_step']:.4f} s = "
+        f"{rec['loop_split']['oracle_substep_ms']:.2f} ms per substep; "
+        f"lane_control_step (the plant of plant_engine='lane') "
+        f"{split['lane_control_step']:.4f} s = "
+        f"{rec['loop_split']['lane_substep_ms']:.2f} ms per substep; "
+        f"card: {rec['card']}")
+
+    # 4. what the card did in one period's parts: one traced call of each,
+    # its device time held against the untraced medians above
+    dev_s, n_dev = traced(lambda: engine.control_step(
+        plant, phys, ctrl, fs, max_contacts=cfg.plant_max_contacts,
+        solver_iterations=cfg.plant_solver_iterations))
+    plan_dev_s, plan_n_dev = traced(lambda: mpc_runtime.plan_and_act(
+        pm, cfg, cost_fn, carry, phys, cmd))
+    if n_dev == 0 or plan_n_dev == 0:
+        raise AssertionError("loop: the profiler saw no device activity")
+    rec["loop_trace"] = {
+        "oracle_device_s": dev_s, "oracle_device_activities": n_dev,
+        "oracle_activities_per_substep": n_dev / fs,
+        "oracle_idle_share": 1.0 - dev_s / split["oracle_control_step"],
+        "plan_device_s": plan_dev_s, "plan_device_activities": plan_n_dev,
+        "plan_idle_share": 1.0 - plan_dev_s / split["plan_and_act"]}
+    log(f"loop trace (torch.profiler, one call each; device time over the "
+        f"untraced median above): oracle control_step ran {n_dev} kernels "
+        f"and copies = {n_dev / fs:.0f} per substep, {1e3 * dev_s:.3f} ms "
+        f"on the card = {1e6 * dev_s / n_dev:.2f} us each, the card idle "
+        f"{100 * rec['loop_trace']['oracle_idle_share']:.1f} % of the "
+        f"{split['oracle_control_step']:.4f} s; plan_and_act ran "
+        f"{plan_n_dev}, {1e3 * plan_dev_s:.3f} ms on the card, idle "
+        f"{100 * rec['loop_trace']['plan_idle_share']:.1f} % of the "
+        f"{split['plan_and_act']:.4f} s; card: {rec['card']}")
+
+
+def traced(fn):
+    """(device seconds, device activities) of ``fn()`` under
+    ``torch.profiler``: the summed durations and the number of the kernels
+    and copies the card ran for it. The profiler slows the host, so the
+    wall time of a traced call is not used."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_card = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    device_s = 1e-6 * sum(ev.time_range.elapsed_us() for ev in on_card)
+    return device_s, len(on_card)
 
 
 def bound(m, it, lsi, S, H):

@@ -1,12 +1,12 @@
 """Vectorized walking environment with auto-reset.
 
 Counterpart of ``quadruped_gym_tpu/envs/vector_env.py``: thousands of
-environments on one card, physics through the batch-minor engines;
-auto-reset keeps the batch dense. Persistent carries behave as in the
-reference: the frequency estimator and the frozen control-cost reference
-survive episode boundaries. The per-sample path (``autoreset_step``,
-``lane_physics=False``) runs on the oracle engine, which is not ported
-yet.
+environments on one card; auto-reset keeps the batch dense. Persistent
+carries behave as in the reference: the frequency estimator and the
+frozen control-cost reference survive episode boundaries.
+``autoreset_step`` (``lane_physics=False``) steps the physics on the
+oracle engine, ``batched_autoreset_step`` (``lane_physics=True``) through
+the batch-minor engines.
 """
 
 from __future__ import annotations
@@ -37,21 +37,14 @@ def _select(done: torch.Tensor, fresh, old):
     return type(fresh)(*(_select(done, a, b) for a, b in zip(fresh, old)))
 
 
-def batched_autoreset_step(
-    m: PhysicsModel, cfg: walking.WalkingConfig, st: walking.WalkingState,
-    action: torch.Tensor, generator: torch.Generator,
-    engine_impl: str = "auto",
-) -> VectorStepOutput:
-    """One step of every environment with auto-reset on termination (see
-    ``walking.batched_step`` for ``engine_impl``). The returned
-    reward/done describe the step that just happened; the state and obs
-    are post-reset where the episode ended. As in the JAX package, fresh
-    states are drawn for every environment each step (from ``generator``)
-    and selected by ``done``; the estimator and the frozen control-cost
-    reference survive the reset."""
-    out = walking.batched_step(m, cfg, st, action, engine_impl=engine_impl)
+def _autoreset(m, cfg, out: walking.StepOutput, num_envs: int,
+               generator: torch.Generator) -> VectorStepOutput:
+    """Reset the environments whose step ``out`` ended their episode. As in
+    the JAX package, fresh states are drawn for every environment each
+    step (from ``generator``) and selected by ``done``; the estimator and
+    the frozen control-cost reference survive the reset."""
     fresh, fresh_obs = walking.reset(
-        m, cfg, action.shape[0], generator,
+        m, cfg, num_envs, generator,
         persistent=(out.state.est, out.state.rew))
     done = out.terminated
     return VectorStepOutput(
@@ -63,21 +56,44 @@ def batched_autoreset_step(
     )
 
 
+def autoreset_step(
+    m: PhysicsModel, cfg: walking.WalkingConfig, st: walking.WalkingState,
+    action: torch.Tensor, generator: torch.Generator,
+) -> VectorStepOutput:
+    """One step of every environment on the oracle engine
+    (``walking.step``) with auto-reset on termination. The returned
+    reward/done describe the step that just happened; the state and obs
+    are post-reset where the episode ended."""
+    out = walking.step(m, cfg, st, action)
+    return _autoreset(m, cfg, out, action.shape[0], generator)
+
+
+def batched_autoreset_step(
+    m: PhysicsModel, cfg: walking.WalkingConfig, st: walking.WalkingState,
+    action: torch.Tensor, generator: torch.Generator,
+    engine_impl: str = "auto",
+) -> VectorStepOutput:
+    """``autoreset_step`` with the physics through a batch-minor engine
+    (see ``walking.batched_step`` for ``engine_impl``): the
+    training-throughput path."""
+    out = walking.batched_step(m, cfg, st, action, engine_impl=engine_impl)
+    return _autoreset(m, cfg, out, action.shape[0], generator)
+
+
 class VectorWalkingEnv:
     """Batched auto-resetting environment. It holds the generator that
     draws reset states and commands, on ``device`` (the card unless
-    ``device="cpu"``), seeded with ``seed``."""
+    ``device="cpu"``), seeded with ``seed``. ``lane_physics=False`` (the
+    default, as in the JAX package) steps on the oracle engine,
+    ``lane_physics=True`` through the batch-minor engines."""
 
     def __init__(self, m: PhysicsModel, cfg: walking.WalkingConfig,
-                 num_envs: int, lane_physics: bool = True, seed: int = 0,
+                 num_envs: int, lane_physics: bool = False, seed: int = 0,
                  device=None):
-        if not lane_physics:
-            raise NotImplementedError(
-                "lane_physics=False steps each environment on the oracle "
-                "engine, which is not ported yet (ROADMAP.md A.8)")
         self.m = m
         self.cfg = cfg
         self.num_envs = num_envs
+        self.lane_physics = lane_physics
         self.obs_size = walking.obs_size(cfg, m)
         self.generator = torch.Generator(device=resolve_device(device))
         self.generator.manual_seed(seed)
@@ -86,5 +102,5 @@ class VectorWalkingEnv:
         return walking.reset(self.m, self.cfg, self.num_envs, self.generator)
 
     def step(self, state, actions: torch.Tensor) -> VectorStepOutput:
-        return batched_autoreset_step(self.m, self.cfg, state, actions,
-                                      self.generator)
+        step = batched_autoreset_step if self.lane_physics else autoreset_step
+        return step(self.m, self.cfg, state, actions, self.generator)

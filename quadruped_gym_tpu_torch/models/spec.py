@@ -2,10 +2,11 @@
 
 Counterpart of ``quadruped_gym_tpu/models/spec.py``. The JAX package
 compiles the MJCF with MuJoCo at build time; this package carries no
-MuJoCo, so the two models it needs are stored as snapshots of the JAX
-package's ``get_planning_model()`` / ``get_fast_plant_model()``
-(``assets/{planning,fast_plant}.npz``). Regenerate them, where MuJoCo and
-the JAX package are installed, with::
+MuJoCo, so the four models it needs are stored as snapshots of the JAX
+package's ``get_planning_model()``, ``get_fast_plant_model()``,
+``get_model(collision_geom_prefixes=MPC_COLLISION_PREFIXES)`` and
+``get_model()`` (``assets/{planning,fast_plant,mpc_plant,full}.npz``).
+Regenerate them, where MuJoCo and the JAX package are installed, with::
 
     python scripts/snapshot_torch_models.py
 """
@@ -31,6 +32,12 @@ SENSOR_FRAMELINVEL = 31
 SENSOR_FRAMEXAXIS = 28
 SENSOR_FRAMEZAXIS = 30
 SENSOR_VELOCIMETER = 2
+
+# geom-name prefixes of the collision sets the snapshots were built with:
+# the lower-leg set of the closed-loop plant, and the feet-only set of the
+# planning model
+MPC_COLLISION_PREFIXES = ("foot", "shin", "ankle_servo")
+FEET_COLLISION_PREFIXES = ("foot",)
 
 # mjtJoint
 JNT_FREE = 0
@@ -248,6 +255,19 @@ def get_fast_plant_model() -> PhysicsModel:
     """Feet + shins + ankle servos with decimated hulls (snapshot of the
     JAX package's ``get_fast_plant_model()``)."""
     return _cached("fast_plant")
+
+
+def get_mpc_plant_model() -> PhysicsModel:
+    """Feet + shins + ankle servos with their full hulls (12 geoms): the
+    closed-loop plant, a snapshot of the JAX package's
+    ``get_model(collision_geom_prefixes=MPC_COLLISION_PREFIXES)``."""
+    return _cached("mpc_plant")
+
+
+def get_full_model() -> PhysicsModel:
+    """Every collidable mesh geom of the robot (25) with its full hull
+    (snapshot of the JAX package's ``get_model()``)."""
+    return _cached("full")
 
 
 # --------------------------------------------------------------------------

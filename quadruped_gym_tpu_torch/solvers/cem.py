@@ -18,7 +18,7 @@ from ..models.spec import PhysicsModel
 from ..physics.engine import State
 from ..tasks.commands import Command
 from . import rollout as rollout_mod
-from .mppi import _ctrl_bounds
+from .mppi import _ctrl_bounds, _rollout_costs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +30,8 @@ class CEMConfig:
     min_sigma: float = 0.02
     alpha: float = 0.2  # distribution smoothing (old vs refit)
     rollout: rollout_mod.RolloutConfig = rollout_mod.RolloutConfig()
-    # lane=True scores rollouts through the batch-minor engines; the
-    # per-sample (oracle) path is not ported yet, so lane=False raises
+    # lane=True scores rollouts through the batch-minor engines,
+    # lane=False through the oracle engine
     lane: bool = False
     lane_newton_iterations: int = 4
     lane_engine_impl: str = "leg"
@@ -75,10 +75,6 @@ def plan(
     generator: torch.Generator,
     sigma: Optional[torch.Tensor] = None,
 ) -> CEMResult:
-    if not cfg.lane:
-        raise NotImplementedError(
-            "CEMConfig(lane=False) needs the per-sample oracle engine, "
-            "which is not ported yet (ROADMAP.md A.8); use lane=True")
     dtype, dev = mean.dtype, mean.device
     lo, hi = _ctrl_bounds(m, dtype, dev)
     if sigma is None:
@@ -88,11 +84,6 @@ def plan(
         eps = torch.randn((cfg.num_samples,) + mean.shape,
                           generator=generator, dtype=dtype, device=dev)
         seqs = torch.clamp(mean[None] + sigma[None] * eps, lo, hi)
-        costs = rollout_mod.lane_batched_rollout_cost(
-            m, cfg.rollout, cost_fn, state, seqs, cmd, prev_ctrl,
-            newton_iterations=cfg.lane_newton_iterations,
-            engine_impl=cfg.lane_engine_impl,
-            ls_iterations=cfg.lane_ls_iterations,
-        )
+        costs = _rollout_costs(m, cfg, cost_fn, state, seqs, cmd, prev_ctrl)
         mean, sigma, best, mean_c = refit(seqs, costs, mean, sigma, cfg)
     return CEMResult(mean=mean, sigma=sigma, best_cost=best, mean_cost=mean_c)

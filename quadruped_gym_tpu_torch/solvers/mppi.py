@@ -30,8 +30,8 @@ class MPPIConfig:
     iterations: int = 1  # refinement iterations per solve
     rollout: rollout_mod.RolloutConfig = rollout_mod.RolloutConfig()
     # lane=True scores rollouts through the batch-minor engines with the
-    # fixed Newton budget below; the per-sample (oracle) path is not
-    # ported yet, so lane=False raises
+    # fixed Newton budget below instead of the rollout config's
+    # solver_iterations; lane=False through the oracle engine
     lane: bool = False
     lane_newton_iterations: int = 4
     lane_ls_iterations: int = 8
@@ -70,6 +70,21 @@ def weighted_update(seqs: torch.Tensor, costs: torch.Tensor,
     return new_mean, cmin, torch.mean(costs), ent
 
 
+def _rollout_costs(m, cfg, cost_fn, state, seqs, cmd, prev):
+    """(S,) rollout costs as an ``MPPIConfig`` or a ``CEMConfig`` asks for
+    them: through a batch-minor engine or through the oracle engine."""
+    if cfg.lane:
+        return rollout_mod.lane_batched_rollout_cost(
+            m, cfg.rollout, cost_fn, state, seqs, cmd, prev,
+            newton_iterations=cfg.lane_newton_iterations,
+            ls_iterations=cfg.lane_ls_iterations,
+            engine_impl=cfg.lane_engine_impl,
+        )
+    return rollout_mod.batched_rollout_cost(
+        m, cfg.rollout, cost_fn, state, seqs, cmd, prev
+    )
+
+
 def plan(
     m: PhysicsModel,
     cfg: MPPIConfig,
@@ -80,10 +95,6 @@ def plan(
     prev_ctrl: torch.Tensor,  # (nu,)
     generator: torch.Generator,
 ) -> PlanResult:
-    if not cfg.lane:
-        raise NotImplementedError(
-            "MPPIConfig(lane=False) needs the per-sample oracle engine, "
-            "which is not ported yet (ROADMAP.md A.8); use lane=True")
     dtype, dev = mean.dtype, mean.device
     lo, hi = _ctrl_bounds(m, dtype, dev)
     S = cfg.num_samples
@@ -93,12 +104,7 @@ def plan(
         eps = cfg.sigma * torch.randn((S, H, nu), generator=generator,
                                       dtype=dtype, device=dev)
         seqs = torch.clamp(mean[None] + eps, lo, hi)
-        costs = rollout_mod.lane_batched_rollout_cost(
-            m, cfg.rollout, cost_fn, state, seqs, cmd, prev_ctrl,
-            newton_iterations=cfg.lane_newton_iterations,
-            ls_iterations=cfg.lane_ls_iterations,
-            engine_impl=cfg.lane_engine_impl,
-        )
+        costs = _rollout_costs(m, cfg, cost_fn, state, seqs, cmd, prev_ctrl)
         mean, *stats = weighted_update(seqs, costs, cfg.temperature)
     best, mean_c, ent = stats
     return PlanResult(mean=mean, best_cost=best, mean_cost=mean_c,

@@ -1,19 +1,19 @@
 """Batched rollout scoring + the walking stage cost for sampling MPC.
 
-Counterpart of ``RolloutConfig``, ``walking_stage_cost``, ``make_cost_fn``
-and ``lane_batched_rollout_cost`` in
-``quadruped_gym_tpu/solvers/rollout.py``. The stage cost works on one
-sample (sensordata (33,)) or on a lane batch (33, S) alike.
+Counterpart of ``quadruped_gym_tpu/solvers/rollout.py``. The stage cost
+works on one sample (sensordata (33,)) or on a lane batch (33, S) alike:
+the component axis comes first.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..models.spec import PhysicsModel
+from ..physics import engine
 from ..physics.engine import State
 from ..tasks import rewards
 from ..tasks.commands import Command
@@ -23,6 +23,10 @@ from ..tasks.commands import Command
 class RolloutConfig:
     horizon: int = 50  # control steps per rollout
     frame_skip: int = 5  # physics substeps per control step (10 ms at 2 ms h)
+    # the oracle-engine paths' budgets (rollout_cost, batched_rollout_cost,
+    # the "aos" predictor); the lane paths carry their own
+    max_contacts: int = 12
+    solver_iterations: Optional[int] = 8
 
 
 # cost_fn(sens, ctrl, prev_ctrl, cmd) -> stage cost per lane
@@ -82,6 +86,50 @@ def make_cost_fn(m: PhysicsModel, vel_smooth_eps: float = 0.0) -> CostFn:
     # is hard-wired to this function's exact (eps = 0) math
     fn._is_walking_stage_cost = vel_smooth_eps == 0.0
     return fn
+
+
+def rollout_cost(
+    m: PhysicsModel,
+    cfg: RolloutConfig,
+    cost_fn: CostFn,
+    state0: State,
+    ctrl_seq: torch.Tensor,  # (..., H, nu)
+    cmd: Command,
+    prev_ctrl0: torch.Tensor,  # (nu,) the last applied control
+) -> torch.Tensor:
+    """Total cost of H-step rollouts on the oracle engine from ``state0``
+    under ``ctrl_seq``: a scalar for one (H, nu) sequence, (...,) costs for
+    a batch of sequences, all rolled out in one batched pass."""
+    batch = ctrl_seq.shape[:-2]
+    st = State(*(x.expand(batch + x.shape) for x in state0))
+    prev = prev_ctrl0.expand(batch + prev_ctrl0.shape)
+    total = ctrl_seq.new_zeros(batch)
+    for t in range(ctrl_seq.shape[-2]):
+        ctrl = ctrl_seq[..., t, :]
+        st = engine.control_step(
+            m, st, ctrl, cfg.frame_skip,
+            max_contacts=cfg.max_contacts,
+            solver_iterations=cfg.solver_iterations,
+        )
+        # the stage cost wants the component axis first
+        total = total + cost_fn(st.sensordata.movedim(-1, 0),
+                                ctrl.movedim(-1, 0), prev.movedim(-1, 0), cmd)
+        prev = ctrl
+    return total
+
+
+def batched_rollout_cost(
+    m: PhysicsModel,
+    cfg: RolloutConfig,
+    cost_fn: CostFn,
+    state0: State,
+    ctrl_seqs: torch.Tensor,  # (S, H, nu)
+    cmd: Command,
+    prev_ctrl0: torch.Tensor,
+) -> torch.Tensor:
+    """(S,) total costs on the oracle engine from one shared start state:
+    the sample axis is the engine's batch axis."""
+    return rollout_cost(m, cfg, cost_fn, state0, ctrl_seqs, cmd, prev_ctrl0)
 
 
 def lane_batched_rollout_cost(

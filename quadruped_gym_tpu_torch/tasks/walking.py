@@ -16,21 +16,23 @@ early actions; rewards read the post-step sensordata.
 Cross-episode persistence quirks preserved: the estimator state and the
 frozen control-cost reference survive reset.
 
-The per-sample ``step`` runs on the oracle engine, which is not ported
-yet; ``batched_step`` runs the physics through the batch-minor engines.
+``step`` runs the physics on the oracle engine (the JAX package's
+per-sample ``step`` under ``vmap``), ``batched_step`` through the
+batch-minor engines; the task layer around the physics is the same code.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..models.spec import PhysicsModel
+from ..physics import engine
 from ..physics.engine import State, make_state
 from . import commands, estimator, observations, rewards
 
@@ -47,6 +49,7 @@ class WalkingConfig:
     reset_options: commands.SampleOptions = commands.SampleOptions()
     obs_window: int = 1  # PO variant frame stacking
     partial_obs: bool = False
+    max_contacts: int = 24  # the oracle engine's contact budget (``step``)
     solver_iterations: Optional[int] = None
     min_freq: float = 1.0  # estimator config
     ema_alpha: float = 0.80
@@ -168,43 +171,16 @@ def reset(
     return state, obs
 
 
-def step(m: PhysicsModel, cfg: WalkingConfig, state: WalkingState,
-         action: torch.Tensor) -> StepOutput:
-    raise NotImplementedError(
-        "walking.step runs one environment on the oracle engine, which is "
-        "not ported yet (ROADMAP.md A.8); use batched_step")
-
-
-def batched_step(
+def _task_step(
     m: PhysicsModel,
     cfg: WalkingConfig,
     state: WalkingState,  # leading axis N
     action: torch.Tensor,  # (N, nu)
-    engine_impl: str = "auto",
-    newton_iterations: Optional[int] = None,
-    ls_iterations: int = 8,
+    physics: Callable[[State, torch.Tensor], State],
 ) -> StepOutput:
-    """One control step of every environment, physics through a
-    batch-minor engine. ``engine_impl``: ``"pallas"`` keeps the JAX
-    package's name for the substep kernel
-    (``ops.cuda_engine.control_step``, one launch per call);
-    ``"leg"``, and ``"auto"`` for a leg-compatible model, is the eager leg
-    engine. Models that are not leg-compatible need the lane engine,
-    which is not ported yet. The Newton budget is a fixed iteration
-    count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
-    (or 4 when that is None)."""
-    from ..ops import cuda_engine, lane_engine, leg_engine
-
-    if engine_impl not in ("auto", "leg", "pallas", "lane"):
-        raise ValueError(f"unknown engine_impl {engine_impl!r}; "
-                         "valid: 'auto', 'leg', 'pallas', 'lane'")
-    if engine_impl == "lane" or not leg_engine.is_compatible(m):
-        raise NotImplementedError(
-            "the lane engine (engine_impl='lane', and every model that is "
-            "not leg-compatible) is not ported yet (ROADMAP.md A.10)")
-    if newton_iterations is None:
-        newton_iterations = cfg.solver_iterations or 4
-
+    """One control step of every environment; ``physics(phys, ctrl)``
+    advances the (N, ...) physics state a control period under the
+    clipped (N, nu) controls."""
     dt = cfg.dtype
     sl = rewards.SensorSlices.from_model(m)
     cdt = cfg.control_dt(m)
@@ -222,15 +198,9 @@ def batched_step(
     action = torch.where((state.phys.time < cfg.settling_time)[:, None],
                          centers[None], action)
 
-    # 4. clip + physics substeps through the batch-minor engine
+    # 4. clip + physics substeps
     ctrl = clip_ctrl(m, action.to(dt))
-    eng = cuda_engine if engine_impl == "pallas" else leg_engine
-    ls = lane_engine.from_batched(*state.phys)
-    ls = eng.control_step(
-        m, ls, ctrl.T, cfg.frame_skip,
-        solver_iterations=newton_iterations, ls_iterations=ls_iterations,
-    )
-    phys = State(*lane_engine.to_batched(ls))
+    phys = physics(state.phys, ctrl)
 
     # 5. reward on post-step sensordata
     out = rewards.input_control_reward(
@@ -238,7 +208,7 @@ def batched_step(
         cdt)
 
     # 6. termination: flip OR time limit
-    terminated = (rewards.flip_termination(ls.sensordata, sl)
+    terminated = (rewards.flip_termination(phys.sensordata.T, sl)
                   | rewards.time_termination(phys.time, cfg.max_time))
 
     # 7. observation
@@ -271,3 +241,61 @@ def batched_step(
         terminated=terminated,
         reward_components=out.components,
     )
+
+
+def step(m: PhysicsModel, cfg: WalkingConfig, state: WalkingState,
+         action: torch.Tensor) -> StepOutput:
+    """One control step of every environment on the oracle engine, with
+    ``cfg.max_contacts`` and ``cfg.solver_iterations``: the JAX package's
+    per-sample ``step`` mapped over the leading env axis."""
+
+    def physics(phys, ctrl):
+        return engine.control_step(
+            m, phys, ctrl, cfg.frame_skip,
+            max_contacts=cfg.max_contacts,
+            solver_iterations=cfg.solver_iterations,
+        )
+
+    return _task_step(m, cfg, state, action, physics)
+
+
+def batched_step(
+    m: PhysicsModel,
+    cfg: WalkingConfig,
+    state: WalkingState,  # leading axis N
+    action: torch.Tensor,  # (N, nu)
+    engine_impl: str = "auto",
+    newton_iterations: Optional[int] = None,
+    ls_iterations: int = 8,
+) -> StepOutput:
+    """One control step of every environment, physics through a
+    batch-minor engine. ``engine_impl``: ``"pallas"`` keeps the JAX
+    package's name for the substep kernel
+    (``ops.cuda_engine.control_step``, one launch per call);
+    ``"leg"``, and ``"auto"`` for a leg-compatible model, is the eager leg
+    engine. Models that are not leg-compatible need the lane engine,
+    which is not ported yet. The Newton budget is a fixed iteration
+    count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
+    (or 4 when that is None)."""
+    from ..ops import cuda_engine, lane_engine, leg_engine
+
+    if engine_impl not in ("auto", "leg", "pallas", "lane"):
+        raise ValueError(f"unknown engine_impl {engine_impl!r}; "
+                         "valid: 'auto', 'leg', 'pallas', 'lane'")
+    if engine_impl == "lane" or not leg_engine.is_compatible(m):
+        raise NotImplementedError(
+            "the lane engine (engine_impl='lane', and every model that is "
+            "not leg-compatible) is not ported yet (ROADMAP.md A.10)")
+    if newton_iterations is None:
+        newton_iterations = cfg.solver_iterations or 4
+    eng = cuda_engine if engine_impl == "pallas" else leg_engine
+
+    def physics(phys, ctrl):
+        ls = lane_engine.from_batched(*phys)
+        ls = eng.control_step(
+            m, ls, ctrl.T, cfg.frame_skip,
+            solver_iterations=newton_iterations, ls_iterations=ls_iterations,
+        )
+        return State(*lane_engine.to_batched(ls))
+
+    return _task_step(m, cfg, state, action, physics)

@@ -3,8 +3,8 @@
     python scripts/snapshot_torch_models.py
 
 Needs MuJoCo (the JAX package compiles the MJCF with it). Writes
-``quadruped_gym_tpu_torch/models/assets/{planning,fast_plant}.npz``, which
-the port loads in place of the MJCF build.
+``quadruped_gym_tpu_torch/models/assets/{planning,fast_plant,mpc_plant,full}.npz``,
+which the port loads in place of the MJCF build.
 """
 
 import os
@@ -16,7 +16,14 @@ from quadruped_gym_tpu.models import spec as jax_spec  # noqa: E402
 from quadruped_gym_tpu_torch.models import spec  # noqa: E402
 
 if __name__ == "__main__":
-    spec.save_model(jax_spec.get_planning_model(),
-                    os.path.join(spec.ASSETS_DIR, "planning.npz"))
-    spec.save_model(jax_spec.get_fast_plant_model(),
-                    os.path.join(spec.ASSETS_DIR, "fast_plant.npz"))
+    models = {
+        "planning": jax_spec.get_planning_model(),
+        "fast_plant": jax_spec.get_fast_plant_model(),
+        "mpc_plant": jax_spec.get_model(
+            collision_geom_prefixes=jax_spec.MPC_COLLISION_PREFIXES),
+        "full": jax_spec.get_model(),
+    }
+    assert spec.MPC_COLLISION_PREFIXES == jax_spec.MPC_COLLISION_PREFIXES
+    assert spec.FEET_COLLISION_PREFIXES == jax_spec.FEET_COLLISION_PREFIXES
+    for name, model in models.items():
+        spec.save_model(model, os.path.join(spec.ASSETS_DIR, name + ".npz"))

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_cache import no_cache_files  # noqa: F401 (autouse fixture)
 
 from quadruped_gym_tpu.models import spec as jspec
 from quadruped_gym_tpu.solvers import cem as jcem
@@ -126,9 +127,15 @@ def test_plan_runs_and_lowers_the_mean_cost():
     lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
     assert np.all(three.mean.numpy() >= lo) and np.all(
         three.mean.numpy() <= hi)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tcem.plan(m, tcem.CEMConfig(lane=False), cost, st, mean, cmd, prev,
-                  torch.Generator())
+    # lane=False scores through the oracle engine instead
+    oracle = tcem.plan(
+        m, tcem.CEMConfig(num_samples=8, num_elites=2, iterations=1,
+                          lane=False, rollout=trollout.RolloutConfig(
+                              horizon=H, frame_skip=1, max_contacts=4,
+                              solver_iterations=2)),
+        cost, st, mean, cmd, prev, torch.Generator().manual_seed(3))
+    assert oracle.mean.shape == oracle.sigma.shape == (H, 12)
+    assert all(bool(torch.isfinite(x).all()) for x in oracle)
 
 
 def test_plan_and_act_cem_carries_sigma_and_shifts_the_plan(monkeypatch):

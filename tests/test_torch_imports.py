@@ -31,6 +31,9 @@ def test_sources_found():
     names = {os.path.relpath(p, REPO) for p in SOURCES}
     assert "quadruped_gym_tpu_torch/ops/cuda_engine.py" in names
     assert "chip_smoke.py" in names
+    for mod in ("maths", "smooth", "collision", "constraints", "solver",
+                "integrator", "sensors", "engine"):
+        assert f"quadruped_gym_tpu_torch/physics/{mod}.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -16,12 +16,19 @@ from quadruped_gym_tpu_torch.models import spec as tspec
 from quadruped_gym_tpu_torch.tasks import commands as tcommands
 from quadruped_gym_tpu_torch.tasks import rewards as trewards
 
-MODELS = ("planning", "fast_plant")
+MODELS = ("planning", "fast_plant", "mpc_plant", "full")
+# how the JAX package builds the model each snapshot holds
+JAX_MODELS = {
+    "planning": jspec.get_planning_model,
+    "fast_plant": jspec.get_fast_plant_model,
+    "mpc_plant": lambda: jspec.get_model(
+        collision_geom_prefixes=jspec.MPC_COLLISION_PREFIXES),
+    "full": jspec.get_model,
+}
 
 
 def _pair(name):
-    return (getattr(jspec, f"get_{name}_model")(),
-            getattr(tspec, f"get_{name}_model")())
+    return JAX_MODELS[name](), getattr(tspec, f"get_{name}_model")()
 
 
 def _assert_field_equal(name, a, b):
@@ -52,6 +59,22 @@ def test_snapshot_equals_jax_model(name):
             _assert_field_equal(f.name, a, b)
     assert [f.name for f in dataclasses.fields(jspec.PhysicsModel)] == [
         f.name for f in dataclasses.fields(tspec.PhysicsModel)]
+
+
+def test_collision_sets():
+    assert tspec.MPC_COLLISION_PREFIXES == jspec.MPC_COLLISION_PREFIXES
+    assert tspec.FEET_COLLISION_PREFIXES == jspec.FEET_COLLISION_PREFIXES
+    sizes = {name: (len(m.col_hull_verts),
+                    sum(len(v) for v in m.col_hull_verts))
+             for name, m in ((n, getattr(tspec, f"get_{n}_model")())
+                             for n in MODELS)}
+    assert sizes["mpc_plant"] == (12, 2272)
+    assert sizes["full"] == (25, 6256)
+    assert sizes["planning"][0] == 4 and sizes["fast_plant"][0] == 12
+    plant = tspec.get_mpc_plant_model()
+    assert all(n.startswith(tspec.MPC_COLLISION_PREFIXES)
+               for n in plant.col_geom_names)
+    assert tspec.get_full_model() is tspec.get_full_model()  # loaded once
 
 
 def test_save_load_roundtrip(tmp_path):

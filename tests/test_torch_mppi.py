@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_cache import no_cache_files  # noqa: F401 (autouse fixture)
 
 from quadruped_gym_tpu.models import spec as jspec
 from quadruped_gym_tpu.physics import engine as jengine
@@ -81,9 +82,18 @@ def test_plan_on_cpu_runs_the_fused_plain_version():
     assert all(bool(torch.isfinite(x).all()) for x in res)
     lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
     assert np.all(res.mean.numpy() >= lo) and np.all(res.mean.numpy() <= hi)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tmppi.plan(m, tmppi.MPPIConfig(lane=False), None, st, mean, cmd,
-                   torch.as_tensor(CENTERS), gen)
+    # lane=False scores the same samples through the oracle engine
+    oracle = tmppi.plan(
+        m, tmppi.MPPIConfig(num_samples=8, lane=False,
+                            rollout=trollout.RolloutConfig(
+                                horizon=H, frame_skip=2, max_contacts=4,
+                                solver_iterations=2)),
+        trollout.make_cost_fn(m), st, mean, cmd, torch.as_tensor(CENTERS),
+        torch.Generator().manual_seed(0))
+    assert oracle.mean.shape == (H, 12) and oracle.mean.dtype == torch.float64
+    assert all(bool(torch.isfinite(x).all()) for x in oracle)
+    # the same noise, nearly the same physics: nearly the same plan
+    torch.testing.assert_close(oracle.mean, res.mean, rtol=0, atol=0.05)
 
 
 def test_mpc_config_refuses_unported_solvers():

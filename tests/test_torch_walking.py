@@ -15,11 +15,15 @@ Tolerances are those of tests/test_lane_task.py: obs rtol 1e-7 / atol
 1e-9, reward and components 1e-7 / 1e-8, phys 1e-8 / 1e-10, ideal
 position 1e-12, estimator 1e-9 / 1e-12; terminated exact."""
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_cache import no_cache_files  # noqa: F401 (autouse fixture)
 
 from quadruped_gym_tpu.envs import vector_env as jvec
 from quadruped_gym_tpu.models import spec as jspec
@@ -29,6 +33,7 @@ from quadruped_gym_tpu_torch import convert
 from quadruped_gym_tpu_torch.envs import vector_env as tvec
 from quadruped_gym_tpu_torch.models import spec as tspec
 from quadruped_gym_tpu_torch.tasks import commands as tcommands
+from quadruped_gym_tpu_torch.tasks import rewards as trewards
 from quadruped_gym_tpu_torch.tasks import walking as twalk
 
 N = 4
@@ -133,8 +138,12 @@ def test_reset_randomizes_yaw_and_commands():
     still, _ = twalk.reset(TM, twalk.WalkingConfig(dtype=torch.float64), 2,
                            _gen())
     assert float(still.cmd.velocity.abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="A.8"):
-        twalk.step(TM, cfg, st, None)
+    # the oracle-engine step takes the same batch of environments
+    out = twalk.step(TM, dataclasses.replace(cfg, solver_iterations=2,
+                                             max_contacts=4, frame_skip=1),
+                     st, torch.zeros((256, 12), dtype=torch.float64))
+    assert out.obs.shape == (256, 33) and out.reward.shape == (256,)
+    assert bool(torch.isfinite(out.obs).all())
 
 
 @pytest.mark.parametrize("partial,impl,frame_skip", [
@@ -233,9 +242,84 @@ def test_batched_autoreset_step_matches_jax():
     assert bool(torch.isfinite(first.reward).all())
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_autoreset_fn(partial, max_time):
+    jcfg, _ = _oracle_cfgs(partial, max_time)
+    return jax.jit(jax.vmap(
+        lambda st, a: jvec.autoreset_step(JM, jcfg, st, a)))
+
+
+def _oracle_cfgs(partial, max_time):
+    jcfg, tcfg = _cfgs(partial, max_time=max_time, frame_skip=2)
+    kw = dict(max_contacts=8, solver_iterations=3)
+    return (dataclasses.replace(jcfg, **kw), dataclasses.replace(tcfg, **kw))
+
+
+def test_oracle_step_and_autoreset_match_jax(partial=True):
+    """Three control steps of ``walking.step`` and ``autoreset_step`` on
+    the oracle engine against the JAX package's (jitted, vmapped over the
+    envs): env 3 runs out of time on the first step and comes back fresh,
+    env 1 on the second. ``walking.step`` is what ``autoreset_step``
+    reports for the step itself, and its state where no reset happened.
+
+    A lane that was reset starts at rest in the air and falls straight
+    down, where the progress-direction term v/|v| amplifies rounding
+    (physics agree to 1e-14 there, the term to 1e-6): from then on that
+    one component, and the total it goes into, are held to 1e-5 instead."""
+    jcfg, tcfg = _oracle_cfgs(partial, 0.5)
+    assert tcfg.max_contacts == 8
+    assert twalk.WalkingConfig().max_contacts == \
+        jwalk.WalkingConfig().max_contacts == 24
+    jstate, _ = _jax_reset(jcfg)
+    jstate = _perturb(jstate, 8, [0.0, 0.495, 0.002, 0.499])
+    tstate = convert.walking_state(jstate, device="cpu")
+    gen = _gen(9)
+    rng = np.random.default_rng(10)
+    dones = []
+    direction = trewards.REWARD_KEYS.index("progress_direction_reward_local")
+    others = [i for i in range(11) if i != direction]
+    fresh = np.zeros(N, dtype=bool)
+    for k in range(3):
+        action = 0.4 * rng.standard_normal((N, 12))
+        action[2] = -3.0  # outside ctrlrange: clipped
+        want = _jax_autoreset_fn(partial, 0.5)(jstate, jnp.asarray(action))
+        plain = twalk.step(TM, tcfg, tstate, torch.as_tensor(action))
+        got = tvec.autoreset_step(TM, tcfg, tstate, torch.as_tensor(action),
+                                  gen)
+        done = np.asarray(want.done)
+        np.testing.assert_array_equal(got.done.numpy(), done)
+        np.testing.assert_array_equal(plain.terminated.numpy(), done)
+        _close(got.obs, want.obs, 1e-7, 1e-9, "obs")
+        _assert_state(got.state, want.state)
+        for out in (got, plain):
+            rew, comp = out.reward.numpy(), out.reward_components.numpy()
+            wrew = np.asarray(want.reward)
+            wcomp = np.asarray(want.reward_components)
+            _close(rew[~fresh], wrew[~fresh], 1e-7, 1e-8, "reward")
+            _close(comp[~fresh], wcomp[~fresh], 1e-7, 1e-8, "components")
+            _close(comp[fresh][:, others], wcomp[fresh][:, others], 1e-7,
+                   1e-8, "components of reset lanes")
+            _close(comp[fresh], wcomp[fresh], 1e-5, 1e-5, "direction")
+            _close(rew[fresh], wrew[fresh], 1e-5, 1e-5, "reward, reset lanes")
+        _close(plain.obs[~done], np.asarray(want.obs)[~done], 1e-7, 1e-9)
+        _close(plain.state.phys.qvel[~done],
+               np.asarray(want.state.phys.qvel)[~done], 1e-8, 1e-10)
+        # the step advanced time on the lanes that ended, the reset zeroed it
+        assert np.all(plain.state.phys.time.numpy()[done] >= 0.5)
+        assert np.all(got.state.phys.time.numpy()[done] == 0.0)
+        dones.append(done.copy())
+        fresh = fresh | done
+        jstate, tstate = want.state, got.state
+    np.testing.assert_array_equal(dones[0], [False, False, False, True])
+    np.testing.assert_array_equal(dones[1], [False, True, False, False])
+    assert not dones[2].any()
+    assert float(tstate.applied_ctrl[2].min()) >= -1.0
+
+
 def test_vector_walking_env():
     _, tcfg = _cfgs(True)
-    env = tvec.VectorWalkingEnv(TM, tcfg, N, seed=3, device="cpu")
+    env = tvec.VectorWalkingEnv(TM, tcfg, N, lane_physics=True, seed=3,
+                                device="cpu")
     assert env.obs_size == 3 * 26 and env.num_envs == N
     state, obs = env.reset()
     assert obs.shape == (N, env.obs_size)
@@ -245,8 +329,21 @@ def test_vector_walking_env():
     assert out.reward_components.shape == (N, 11)
     assert all(bool(torch.isfinite(x).all())
                for x in (out.obs, out.reward, out.reward_components))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tvec.VectorWalkingEnv(TM, tcfg, N, lane_physics=False, device="cpu")
+    # the default is the oracle engine, as in the JAX package
+    import inspect
+    for cls in (tvec.VectorWalkingEnv, jvec.VectorWalkingEnv):
+        assert inspect.signature(cls).parameters[
+            "lane_physics"].default is False
+    oracle = tvec.VectorWalkingEnv(TM, tcfg, N, seed=3, device="cpu")
+    assert oracle.lane_physics is False
+    state2, obs2 = oracle.reset()
+    torch.testing.assert_close(obs2, obs, rtol=0, atol=0)
+    out2 = oracle.step(state2, torch.zeros((N, 12), dtype=torch.float64))
+    assert out2.obs.shape == out.obs.shape and out2.done.dtype == torch.bool
+    # the same step on another engine: the same up to the solvers' budgets
+    torch.testing.assert_close(out2.state.phys.qpos, out.state.phys.qpos,
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(out2.reward, out.reward, rtol=0, atol=1e-2)
     if not torch.cuda.is_available():  # the card unless the caller says cpu
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tvec.VectorWalkingEnv(TM, tcfg, N)
