@@ -46,13 +46,31 @@ Phases, each of which raises on failure (nothing is caught):
    leg-engine plant, the period's split into plan and plant, timed
    with a synchronise after each part, and one traced call of each
    (``torch.profiler``): the kernels the card ran and its idle share.
-8. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+8. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
+   ``mpc_plant`` model on the oracle engine at frame_skip 10, 12
+   contacts, 4 Newton passes, partial observation over 10 frames,
+   hidden (256, 256, 128), 4 epochs x 8 minibatches, float32) through
+   ``rl.train.main``: 2 iterations of one update into a temporary
+   directory, then a resume that continues at iteration 2 with one
+   update and one fine-tune update (log_std <= -1.2). Metrics finite,
+   32 CSV rows an update, the checkpoint's step after each call, the
+   parameters on the card. Then one update timed in two parts (rollout,
+   learning), a synchronise after each, one traced update
+   (``torch.profiler``: kernels per env step, device time, idle share;
+   its rollout cut to 2 env steps, which launch what every step does),
+   one ``--lane-physics`` update cut to 2 env steps (the eager leg engine
+   takes seconds an env step at this width), and the committed policy
+   (``artifacts/walk_r5/policy_params``) on 2,048 of the run's
+   observations: card float32 against CPU float64. Neither kernel runs
+   on this path (as in the JAX package: the trainer's physics is the
+   oracle engine or the eager leg engine).
+9. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
-   bound; the custom-cost solve and the env's steps/s as phases 5 and 6
-   measured them.
+   bound; B1's bound at the closed loop's shape; the custom-cost solve and
+   the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 7 each set the launch counters to 0 just before driving
+Phases 4 to 8 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -63,15 +81,19 @@ failure, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "check", "main", "plan", "env", "loop", "time")
+PHASES = ("device", "build", "check", "main", "plan", "env", "loop", "train",
+          "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -100,6 +122,18 @@ WALK_SPEED = 0.15
 WALK_LIMITS = {"forward_m": 0.15, "sideways_m": 0.10, "upright": 0.9}
 DELAYED_STEPS = 20
 SPLIT_PERIODS = 5
+# the train phase: rl.train.main's defaults, one update an iteration
+TRAIN_ARGS = ["--timesteps-per-iteration", "65536", "--no-eval"]
+LANE_TRAIN_STEPS = 2
+# env steps of the traced rollout: a whole one (32 steps, 1.27M kernels)
+# kept the profiler busy for ~10 minutes on the H100's host
+TRACE_ENV_STEPS = 2
+POLICY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "artifacts", "walk_r5", "policy_params")
+# the network on the card in float32 against float64 on the CPU, relative
+# to the largest output: FP32 rounding over 4 layers of <= 260 inputs is
+# ~1e-6; TF32 products would miss by ~1e-3
+POLICY_TOL = 1e-5
 
 
 def log(*args):
@@ -1039,10 +1073,10 @@ def phase_loop(rec):
 
     # 4. what the card did in one period's parts: one traced call of each,
     # its device time held against the untraced medians above
-    dev_s, n_dev = traced(lambda: engine.control_step(
+    dev_s, n_dev, _ = traced(lambda: engine.control_step(
         plant, phys, ctrl, fs, max_contacts=cfg.plant_max_contacts,
         solver_iterations=cfg.plant_solver_iterations))
-    plan_dev_s, plan_n_dev = traced(lambda: mpc_runtime.plan_and_act(
+    plan_dev_s, plan_n_dev, _ = traced(lambda: mpc_runtime.plan_and_act(
         pm, cfg, cost_fn, carry, phys, cmd))
     if n_dev == 0 or plan_n_dev == 0:
         raise AssertionError("loop: the profiler saw no device activity")
@@ -1063,8 +1097,186 @@ def phase_loop(rec):
         f"{split['plan_and_act']:.4f} s; card: {rec['card']}")
 
 
+def train_run(rec, out, argv, first, n_iter, steps):
+    """``rl.train.main(argv)`` into ``out`` on the card, checked: every
+    metric finite, the iterations numbered on from ``first``, the
+    checkpoint's step and one CSV row per policy step so far, the
+    parameters on the card. Returns (train_state, iterations)."""
+    from quadruped_gym_tpu_torch.rl import train
+    from quadruped_gym_tpu_torch.runtime import checkpoint
+    from quadruped_gym_tpu_torch.utils.metrics import read_reward_csv
+
+    ts, its = train.main(["--output", out] + argv)
+    torch.cuda.synchronize()
+    if [it.index for it in its] != list(range(first, first + n_iter)):
+        raise AssertionError(f"train: iterations {[it.index for it in its]}")
+    for it in its:
+        for name, x in zip(it.metrics._fields, it.metrics):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"train iteration {it.index}: {name} "
+                                     "is not finite")
+    where = {p.device.type for p in ts.net.parameters()}
+    if where != {"cuda"} or ts.obs.device.type != "cuda":
+        raise AssertionError(f"train: parameters on {where}")
+    _, step = checkpoint.read(os.path.join(out, "policy"))
+    if step != first + n_iter or int(ts.update_idx) != first + n_iter:
+        raise AssertionError(f"train: checkpoint step {step}, update_idx "
+                             f"{int(ts.update_idx)} after iteration "
+                             f"{first + n_iter - 1}")
+    rows, _, comp, _ = read_reward_csv(os.path.join(out,
+                                                    "rewards_continuous.csv"))
+    if list(rows) != list(range((first + n_iter) * steps)) \
+            or not np.isfinite(comp).all():
+        raise AssertionError(f"train: {len(rows)} CSV rows after "
+                             f"{first + n_iter} updates of {steps} steps")
+    for it in its:
+        log(f"train iteration {it.index} ({' '.join(argv)}): "
+            f"{it.seconds:.3f} s an update (host clock, ends in the metrics' "
+            f"read-back), mean step reward "
+            f"{float(it.metrics.mean_reward.mean()):.4f}, approx_kl "
+            f"{float(it.metrics.approx_kl[-1]):.5f}; card: {rec['card']}")
+    log(f"train: checkpoint step {step}, {len(rows)} CSV rows, log_std max "
+        f"{float(ts.net.log_std.detach().max()):.4f} after the call")
+    return ts, its
+
+
+def phase_train(rec):
+    from quadruped_gym_tpu_torch import convert
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.rl import networks, ppo, train
+
+    cfg = ppo.PPOConfig()  # the trainer's defaults
+    env_cfg = train.make_env_config(train._parser().parse_args(TRAIN_ARGS))
+    m = spec.get_mpc_plant_model()
+    n_env, n_step, fs = cfg.num_envs, cfg.num_steps, env_cfg.frame_skip
+    out = {"num_envs": n_env, "num_steps": n_step, "frame_skip": fs}
+    rec["train"] = out
+
+    def no_kernels(tag):
+        got = (cuda_engine.launch_counts[ROLLOUT],
+               cuda_engine.launch_counts[SUBSTEP])
+        if got != (0, 0):
+            raise AssertionError(f"{tag}: {got[0]} fused and {got[1]} "
+                                 "substep launches (want none)")
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) two iterations at the defaults, then a resume with one more
+        # and one of fine-tune
+        run_dir = os.path.join(tmp, "run")
+        cuda_engine.reset_launch_counts()
+        ts, its = train_run(rec, run_dir, TRAIN_ARGS + ["--iterations", "2"],
+                            0, 2, n_step)
+        ts, its2 = train_run(rec, run_dir, TRAIN_ARGS + [
+            "--iterations", "1", "--finetune-iterations", "1"], 2, 2, n_step)
+        no_kernels("train")
+        if not float(ts.net.log_std.detach().max()) <= -1.2:
+            raise AssertionError("train: the fine-tune left log_std above "
+                                 "-1.2")
+        out["update_s"] = [it.seconds for it in its + its2]
+
+        # one more update in its two parts, a synchronise after each
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env_state, obs, traj = ppo._rollout(m, env_cfg, cfg, ts.net,
+                                            ts.env_state, ts.obs,
+                                            ts.generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ppo._optimize(cfg, ts.net, ts.opt, ts.generator, traj, obs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.update(rollout_s=t1 - t0, learn_s=t2 - t1)
+        out["env_steps_per_s"] = n_env * n_step / (t2 - t0)
+        out["substep_ms"] = 1e3 * out["rollout_s"] / (n_step * fs)
+        log(f"train split (one update, host clock, a synchronise after "
+            f"each part): rollout {out['rollout_s']:.3f} s = "
+            f"{out['rollout_s'] / n_step:.4f} s an env step = "
+            f"{out['substep_ms']:.2f} ms a substep ({n_env} envs, oracle "
+            f"engine, mpc_plant, frame_skip {fs}); learning (GAE + "
+            f"{cfg.epochs} x {cfg.num_minibatches} minibatches of "
+            f"{cfg.batch_size // cfg.num_minibatches}) {out['learn_s']:.3f} "
+            f"s; {out['env_steps_per_s']:.1f} env-steps/s; card: "
+            f"{rec['card']}")
+
+        # one traced update, its rollout cut to TRACE_ENV_STEPS env steps
+        # (every env step launches the same kernels); the learning half
+        # traced whole, on the rollout above
+        cut = dataclasses.replace(cfg, num_steps=TRACE_ENV_STEPS)
+        r_dev, r_n, _ = traced(lambda: ppo._rollout(
+            m, env_cfg, cut, ts.net, env_state, obs, ts.generator))
+        l_dev, l_n, _ = traced(lambda: ppo._optimize(
+            cfg, ts.net, ts.opt, ts.generator, traj, obs))
+        if r_n == 0 or l_n == 0:
+            raise AssertionError("train: the profiler saw no device activity")
+        step_s = out["rollout_s"] / n_step
+        dev_step_s = r_dev / TRACE_ENV_STEPS
+        out["trace"] = {
+            "env_steps_traced": TRACE_ENV_STEPS,
+            "rollout_device_s": r_dev, "rollout_activities": r_n,
+            "activities_per_env_step": r_n / TRACE_ENV_STEPS,
+            "rollout_idle_share": 1.0 - dev_step_s / step_s,
+            "learn_device_s": l_dev, "learn_activities": l_n,
+            "learn_idle_share": 1.0 - l_dev / out["learn_s"],
+            "idle_share": 1.0 - (dev_step_s * n_step + l_dev) / (t2 - t0)}
+        tr = out["trace"]
+        log(f"train trace (torch.profiler; the rollout traced for "
+            f"{TRACE_ENV_STEPS} env steps, the learning half whole; device "
+            f"time over the untraced split above): an env step ran "
+            f"{r_n / TRACE_ENV_STEPS:.0f} kernels and copies = "
+            f"{r_n / (TRACE_ENV_STEPS * fs):.0f} a substep, "
+            f"{1e3 * dev_step_s:.2f} ms on the card = {1e6 * r_dev / r_n:.2f} "
+            f"us each, the card idle {100 * tr['rollout_idle_share']:.1f} % "
+            f"of the rollout; the learning ran {l_n}, {1e3 * l_dev:.2f} ms on "
+            f"the card, idle {100 * tr['learn_idle_share']:.1f} %; the update "
+            f"idle {100 * tr['idle_share']:.1f} % ({n_step} env steps at the "
+            f"traced rate); card: {rec['card']}")
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        no_kernels("train split and trace")
+
+        # (b) the leg-engine env, cut in depth
+        lane_dir = os.path.join(tmp, "lane")
+        _, lane = train_run(rec, lane_dir, TRAIN_ARGS + [
+            "--lane-physics", "--iterations", "1", "--num-steps",
+            str(LANE_TRAIN_STEPS), "--timesteps-per-iteration",
+            str(n_env * LANE_TRAIN_STEPS)], 0, 1, LANE_TRAIN_STEPS)
+        no_kernels("train --lane-physics")
+        out["lane_update_s"] = lane[0].seconds
+        log(f"train --lane-physics (cut to {LANE_TRAIN_STEPS} env steps from "
+            f"{n_step}: the eager leg engine takes seconds an env step at "
+            f"{n_env} envs): {lane[0].seconds:.3f} s for the update = at most "
+            f"{lane[0].seconds / LANE_TRAIN_STEPS:.3f} s an env step "
+            f"(learning included); card: {rec['card']}")
+
+    # (c) the committed policy on the run's observations: float32 on the
+    # card against float64 on the CPU
+    with np.load(os.path.join(POLICY, "state.npz")) as data:
+        net32 = convert.policy_params(data, torch.float32, "cuda")
+        net64 = convert.policy_params(data, torch.float64, "cpu")
+    obs = ts.obs
+    errs = {}
+    with torch.no_grad():
+        for name, fn in (("actor_mean", networks.actor_mean),
+                         ("value", networks.value)):
+            got = fn(net32, obs).double().cpu()
+            want = fn(net64, obs.double().cpu())
+            errs[name] = float((got - want).abs().max() / want.abs().max())
+    out["policy_rel_err"] = errs
+    log(f"train policy check: {POLICY_TOL:g} allowed; artifacts/walk_r5 "
+        f"policy on {obs.shape[0]} observations of the run, float32 on the "
+        f"card vs float64 on the CPU: max error over max |output| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; card: {rec['card']}")
+    if not max(errs.values()) <= POLICY_TOL:
+        raise AssertionError(f"train: the policy on the card is off by "
+                             f"{max(errs.values()):.2e}")
+    log(f"train: peak device memory {out['peak_mem_gb']:.2f} GB; 0 "
+        f"fused_rollout_cost and 0 substep launches; card: {rec['card']}")
+
+
 def traced(fn):
-    """(device seconds, device activities) of ``fn()`` under
+    """(device seconds, device activities, ``fn()``) under
     ``torch.profiler``: the summed durations and the number of the kernels
     and copies the card ran for it. The profiler slows the host, so the
     wall time of a traced call is not used."""
@@ -1074,21 +1286,21 @@ def traced(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
     on_card = [ev for ev in prof.events()
                if ev.device_type == DeviceType.CUDA]
     device_s = 1e-6 * sum(ev.time_range.elapsed_us() for ev in on_card)
-    return device_s, len(on_card)
+    return device_s, len(on_card), out
 
 
-def bound(m, it, lsi, S, H):
+def bound(m, it, lsi, S, H, fs=FRAME_SKIP):
     """(bound_ms, bound_by, ops per rollout step): the plain version's
     operations (``cuda_engine.count_ops``) over the FP32 peak vs the
     bytes in and out over the HBM rate."""
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
-    per_step = cuda_engine.rollout_flops(m, 1, FRAME_SKIP, it, lsi)
+    per_step = cuda_engine.rollout_flops(m, 1, fs, it, lsi)
     ops = per_step * H * S
     nbytes = 4 * (S * H * m.nu + S + m.nq + m.nv + m.na + m.nu + 5)
     t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
@@ -1157,7 +1369,38 @@ def phase_time(rec, iters=5, plain_h=2, seed=7):
             f"{plain_ms:.1f} ms (H={plain_h} scaled x{H_MAIN // plain_h}); "
             f"bound {bound_ms:.3f} ms by {bound_by} "
             f"({per_step:.0f} ops per rollout step); card: {rec['card']}")
+    phase_time_loop_shape(rec, gen, cmd, prev)
     phase_time_substep(rec)
+
+
+def phase_time_loop_shape(rec, gen, cmd, prev, iters=5):
+    """B1 at the closed loop's shape (the ``loop`` phase's planner: 1,024
+    rollouts, H=20, budget 4/8, planning model), CUDA events per launch,
+    against its bound."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics.engine import make_state
+
+    dev, dt = torch.device("cuda"), torch.float32
+    walk = walk_config().mppi
+    S, H, fs = walk.num_samples, walk.rollout.horizon, walk.rollout.frame_skip
+    it, lsi = walk.lane_newton_iterations, walk.lane_ls_iterations
+    m = spec.get_planning_model()
+    state = make_state(m, dtype=dt, device=dev)
+    seqs = random_seqs(gen, S, H, dt, dev, 0.2)
+    ms = event_ms(lambda: cuda_engine.fused_rollout_cost(
+        m, state, seqs, cmd, prev, fs, it, lsi), iters)
+    bound_ms, bound_by, per_step = bound(m, it, lsi, S, H, fs)
+    row = {"S": S, "H": H, "budget": [it, lsi], "ms": float(np.median(ms)),
+           "ms_each": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "ops_per_rollout_step": per_step}
+    row["share"] = bound_ms / row["ms"]
+    rec["timing"]["loop_shape"] = row
+    log(f"time B1 at the loop's shape: planning {it}/{lsi}, S={S}, H={H}, "
+        f"frame_skip {fs}, float32: {row['ms']:.3f} ms median of {iters} "
+        f"launches (CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({per_step:.0f} ops per rollout step): {100 * row['share']:.2f} % "
+        f"of it; card: {rec['card']}")
 
 
 def event_ms(fn, iters):

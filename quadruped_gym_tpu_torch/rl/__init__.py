@@ -1,0 +1,17 @@
+"""Reinforcement learning (PPO) for the walking task.
+
+Counterpart of ``quadruped_gym_tpu/rl``: the rollout, GAE and minibatch
+epochs of an update all run on the card over thousands of batched
+envs. The data-parallel trainer (``rl/distributed.py``) and the eval
+rollout (``rl/evaluate.py``) are not ported yet (ROADMAP.md A.14, A.11).
+"""
+
+from . import networks, ppo  # noqa: F401
+from .ppo import (  # noqa: F401
+    PPOConfig,
+    TrainState,
+    UpdateMetrics,
+    init_train_state,
+    train_chunk,
+    update_fn,
+)

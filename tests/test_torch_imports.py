@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``
-nor ``chip_smoke.py`` imports jax, mujoco or the JAX package. The check
+nor ``chip_smoke.py`` imports jax, optax, mujoco or the JAX package. The check
 reads the sources' import statements; it imports nothing."""
 
 import ast
@@ -13,7 +13,7 @@ SOURCES = sorted(
     glob.glob(os.path.join(REPO, "quadruped_gym_tpu_torch", "**", "*.py"),
               recursive=True)
 ) + [os.path.join(REPO, "chip_smoke.py")]
-FORBIDDEN = ("jax", "jaxlib", "mujoco", "quadruped_gym_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "mujoco", "quadruped_gym_tpu")
 
 
 def _imported(path):
@@ -34,6 +34,9 @@ def test_sources_found():
     for mod in ("maths", "smooth", "collision", "constraints", "solver",
                 "integrator", "sensors", "engine"):
         assert f"quadruped_gym_tpu_torch/physics/{mod}.py" in names
+    for mod in ("rl/__init__", "rl/networks", "rl/ppo", "rl/train",
+                "runtime/checkpoint", "utils/__init__", "utils/metrics"):
+        assert f"quadruped_gym_tpu_torch/{mod}.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
