@@ -18,9 +18,10 @@ Phases, each of which raises on failure (nothing is caught):
    must refuse (too much shared memory) has to raise. The oracle engine
    (plain PyTorch, no kernel): ``physics.engine.step`` on the card
    against the CPU in float64 (a state in contact and one in the air,
-   1e-9), in float32 with the base far from the world origin against
-   float64, and its float32 products are true FP32 even while the
-   process-wide TF32 flag is on.
+   1e-9) on the plant model (``mpc_plant``) and on the gym env's
+   (``full``, 24 contacts, the model's Newton budget), in float32 with
+   the base far from the world origin against float64, and its float32
+   products are true FP32 even while the process-wide TF32 flag is on.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -64,13 +65,25 @@ Phases, each of which raises on failure (nothing is caught):
    observations: card float32 against CPU float64. Neither kernel runs
    on this path (as in the JAX package: the trainer's physics is the
    oracle engine or the eager leg engine).
-9. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+9. eval: the trainer's per-iteration eval. The committed policy through
+   ``rl.evaluate.eval_rollout`` on the card in float32
+   (``POWalkingQuadrupedEnv`` on ``full``, obs window 10, frame_skip 10,
+   24 contacts, the model's Newton budget), its 20 s episode cut to the
+   JAX test's 0.6 s (30 control steps) and held to that test's limits;
+   a control step timed after landing (host clock, synchronised) and one
+   substep of its physics traced (``torch.profiler``: kernels, device
+   time, idle share); the 20 s episode's cost extrapolated, beside the
+   train phase's update; and ``rl.train.main`` at 2,048 envs with the eval on,
+   cut to one update of 2 env steps and a 0.2 s eval episode, its
+   ``logs/eval_metrics.jsonl`` row, plots and video checked. Neither
+   kernel runs on this path (the gym env steps the oracle engine).
+10. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 8 each set the launch counters to 0 just before driving
+Phases 4 to 9 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -93,7 +106,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "check", "main", "plan", "env", "loop", "train",
-          "time")
+          "eval", "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -111,8 +124,11 @@ F64_TOL = 1e-8
 F32_TOL = 1e-4
 ROLLOUT = "fused_rollout_cost"
 SUBSTEP = "substep"
-# the oracle engine on the card against the CPU, float64, one substep
+# the oracle engine on the card against the CPU, float64, one substep, on
+# each model and engine options a path steps it with
 ORACLE_F64_TOL = 1e-9
+ORACLE_CASES = {"mpc_plant": dict(max_contacts=12, solver_iterations=4),
+                "full": dict(max_contacts=24, solver_iterations=None)}
 # the closed-loop walk: 200 control steps = 2 s of simulated time under a
 # 0.15 m/s command. The JAX package's example typically travels ~0.32 m
 # forward with < 3 cm of drift and uprightness > 0.98; the noise streams
@@ -120,7 +136,9 @@ ORACLE_F64_TOL = 1e-9
 WALK_STEPS = 200
 WALK_SPEED = 0.15
 WALK_LIMITS = {"forward_m": 0.15, "sideways_m": 0.10, "upright": 0.9}
-DELAYED_STEPS = 20
+# the delayed loop, on each plant engine (cut from 20 steps: its lane
+# plant takes ~5 s a period)
+DELAYED_STEPS = 10
 SPLIT_PERIODS = 5
 # the train phase: rl.train.main's defaults, one update an iteration
 TRAIN_ARGS = ["--timesteps-per-iteration", "65536", "--no-eval"]
@@ -134,6 +152,23 @@ POLICY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # to the largest output: FP32 rounding over 4 layers of <= 260 inputs is
 # ~1e-6; TF32 products would miss by ~1e-3
 POLICY_TOL = 1e-5
+# the eval phase: the committed policy through rl.evaluate.eval_rollout on
+# the gym env's model (full), cut from the trainer's 20 s episode to the
+# JAX package's test episode (tests/test_walk_policy.py: 0.6 s, 30 control
+# steps at frame_skip 10 in float64, 31 on a float32 clock) and held to
+# that test's limits
+EVAL_MAX_TIME = 0.6
+EVAL_EPISODE_S = 20.0  # rl.train's --max-time: the episode it evals
+EVAL_LIMITS = {"upright": 0.9, "tracking": 0.5}
+EVAL_WARM_STEPS = 8
+EVAL_TIMED_STEPS = 4
+# rl.train.main at its defaults (2,048 envs), cut to one update of 2 env
+# steps and an eval episode of 0.2 s (10 control steps)
+EVAL_TRAIN_ARGS = ["--num-steps", "2", "--timesteps-per-iteration", "4096",
+                   "--iterations", "1", "--max-time", "0.2"]
+EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
+             "final_tracking_error", "mean_uprightness", "command_speed",
+             "iteration"}
 
 
 def log(*args):
@@ -441,20 +476,19 @@ def phase_check(rec):
     check_oracle(rec)
 
 
-def oracle_states(m, dtype, device):
+def oracle_states(m, dtype, device, **kw):
     """Two start states of the oracle engine and a control, made on the
     CPU in float64 from a seed: the robot on its feet and moving (the
     reset state hangs 10 cm above the floor, so it is dropped for 0.4 s
-    first), and in the air, tilted, 6 m up and 50 m from the world
-    origin."""
+    first, under the engine options ``kw``), and in the air, tilted, 6 m
+    up and 50 m from the world origin."""
     from quadruped_gym_tpu_torch.physics import engine
 
     rng = np.random.default_rng(20)
     f64 = torch.float64
     centers = torch.tensor([0.0, 0.0, -0.5] * 4, dtype=f64)
     st = engine.make_state(m, dtype=f64, device="cpu")
-    st = engine.control_step(m, st, centers, 200, max_contacts=12,
-                             solver_iterations=4)
+    st = engine.control_step(m, st, centers, 200, **kw)
     contact = st._replace(
         qvel=st.qvel + 0.2 * torch.as_tensor(rng.standard_normal(m.nv)))
     qpos = st.qpos.clone()
@@ -476,37 +510,47 @@ def oracle_states(m, dtype, device):
 def check_oracle(rec):
     """The oracle engine is plain PyTorch: the card must compute what the
     CPU computes (float64), stay accurate in float32 far from the world
-    origin, and never drop to TF32."""
+    origin, and never drop to TF32. Float64 on both of its paths' models
+    and options: the closed loop's and the trainer's plant (``mpc_plant``,
+    12 contacts, 4 Newton passes) and the gym env's (``full``: 25 geoms,
+    24 contacts, the model's Newton budget)."""
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.physics import engine, maths
 
     dev = torch.device("cuda")
     f64, f32 = torch.float64, torch.float32
-    m = spec.get_mpc_plant_model()
-    kw = dict(max_contacts=12, solver_iterations=4)
-    on_cpu, ctrl_cpu = oracle_states(m, f64, "cpu")
-    errs = {}
-    for kind, st in on_cpu.items():
-        want = engine.step(m, st, ctrl_cpu, **kw)
-        ncon = int(engine.forward(m, st, ctrl_cpu, **kw).ncon_active)
-        if (ncon > 0) != (kind == "contact"):
-            raise AssertionError(f"oracle {kind}: {ncon} active rows")
-        got = engine.step(m, type(st)(*(v.to(dev) for v in st)),
-                          ctrl_cpu.to(dev), **kw)
-        for f in got._fields:
-            g, w = getattr(got, f).cpu(), getattr(want, f)
-            if g.dtype != f64 or not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"oracle {kind}: {f} not finite float64")
-            err = (g - w).abs()
-            if bool((err > ORACLE_F64_TOL + ORACLE_F64_TOL * w.abs()).any()):
-                raise AssertionError(
-                    f"oracle {kind}: {f} on the card differs from the CPU "
-                    f"by {float(err.max()):.3e}")
-            errs[f"{kind} {f}"] = float(err.max())
-        log(f"check oracle engine.step f64 {kind} ({ncon} active rows): "
-            "card vs CPU max_abs_err "
-            + " ".join(f"{f} {errs[f'{kind} {f}']:.2e}" for f in got._fields)
-            + f" (rtol=atol={ORACLE_F64_TOL:g})")
+    errs, cases = {}, {}
+    for name, kw in ORACLE_CASES.items():
+        m = spec.get_snapshot(name)
+        on_cpu, ctrl_cpu = cases[name] = oracle_states(m, f64, "cpu", **kw)
+        for kind, st in on_cpu.items():
+            want = engine.step(m, st, ctrl_cpu, **kw)
+            ncon = int(engine.forward(m, st, ctrl_cpu, **kw).ncon_active)
+            if (ncon > 0) != (kind == "contact"):
+                raise AssertionError(f"oracle {name} {kind}: {ncon} active "
+                                     "rows")
+            got = engine.step(m, type(st)(*(v.to(dev) for v in st)),
+                              ctrl_cpu.to(dev), **kw)
+            for f in got._fields:
+                g, w = getattr(got, f).cpu(), getattr(want, f)
+                if g.dtype != f64 or not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"oracle {name} {kind}: {f} not "
+                                         "finite float64")
+                err = (g - w).abs()
+                if bool((err > ORACLE_F64_TOL
+                         + ORACLE_F64_TOL * w.abs()).any()):
+                    raise AssertionError(
+                        f"oracle {name} {kind}: {f} on the card differs from "
+                        f"the CPU by {float(err.max()):.3e}")
+                errs[f"{name} {kind} {f}"] = float(err.max())
+            log(f"check oracle engine.step f64 {name} {kw} {kind} ({ncon} "
+                "active rows): card vs CPU max_abs_err "
+                + " ".join(f"{f} {errs[f'{name} {kind} {f}']:.2e}"
+                           for f in got._fields)
+                + f" (rtol=atol={ORACLE_F64_TOL:g})")
+    # float32 and TF32 on the plant of the closed loop and the trainer
+    m, kw = spec.get_mpc_plant_model(), ORACLE_CASES["mpc_plant"]
+    on_cpu, ctrl_cpu = cases["mpc_plant"]
 
     # float32, 6 m up and 50 m out, against float64 on the card: spatial
     # vectors are measured from the base, so float32 rounding (6e-8 of
@@ -1273,6 +1317,178 @@ def phase_train(rec):
                              f"{max(errs.values()):.2e}")
     log(f"train: peak device memory {out['peak_mem_gb']:.2f} GB; 0 "
         f"fused_rollout_cost and 0 substep launches; card: {rec['card']}")
+
+
+def episode_steps(max_time, h, frame_skip, dtype=np.float32):
+    """Control steps of an episode that ends at ``time >= max_time`` on a
+    clock summing ``h`` in ``dtype``: in float32 the sum of 300 steps of
+    0.002 s is just under 0.6, so that episode takes one step more than
+    in float64."""
+    t, n, end = dtype(0), 0, dtype(max_time)
+    while not t >= end:
+        for _ in range(frame_skip):
+            t = dtype(t + dtype(h))
+        n += 1
+    return n
+
+
+def phase_eval(rec):
+    """The trainer's per-iteration eval: the committed policy through
+    ``eval_rollout`` on the card (float32, the gym env on ``full``), the
+    cost of its control step, and ``rl.train.main`` at its defaults with
+    the eval on. No kernel runs on this path (the gym env steps the oracle
+    engine, as in the JAX package)."""
+    from quadruped_gym_tpu_torch import convert
+    from quadruped_gym_tpu_torch.envs import gym_env, rendering
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics import engine
+    from quadruped_gym_tpu_torch.rl import evaluate, networks, train
+    from quadruped_gym_tpu_torch.utils import plot
+
+    found = {"gymnasium": gym_env.gym is not None,
+             "cv2": rendering.HAVE_CV2,
+             "matplotlib": plot.have_matplotlib()}
+    out = {"found": found}
+    rec["eval"] = out
+    log("eval: optional packages found: "
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in found.items()))
+    with np.load(os.path.join(POLICY, "state.npz")) as data:
+        net = convert.policy_params(data, torch.float32, "cuda")
+
+    cuda_engine.reset_launch_counts()
+    # (a) the committed policy, one episode cut to EVAL_MAX_TIME
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em = evaluate.eval_rollout(net, obs_window=10, max_time=EVAL_MAX_TIME,
+                               frame_skip=10, deterministic=True, seed=0)
+    wall = time.perf_counter() - t0
+    env = gym_env.POWalkingQuadrupedEnv(obs_window=10, max_time=EVAL_EPISODE_S,
+                                        frame_skip=10)
+    step_dt = env.pm.timestep * env.frame_skip
+    want_steps = episode_steps(EVAL_MAX_TIME, env.pm.timestep, env.frame_skip)
+    em.pop("rewards")
+    out["rollout"] = dict(em, wall_s=wall, step_s=wall / em["steps"])
+    log(f"eval: walk_r5 through eval_rollout on the card (float32, "
+        f"POWalkingQuadrupedEnv on full, obs window 10, frame_skip 10, "
+        f"{env._cfg.max_contacts} contacts, Newton budget "
+        f"{env.pm.solver_iterations}): {em['steps']} steps, return "
+        f"{em['episode_return']:.3f}, survived {em['survived']}, tracking "
+        f"error {em['mean_tracking_error']:.4f} m/s, uprightness "
+        f"{em['mean_uprightness']:.4f}; {wall:.3f} s = "
+        f"{out['rollout']['step_s']:.4f} s a control step (host clock, "
+        f"actor and read-backs included); card: {rec['card']}")
+    if not (em["steps"] == want_steps and em["survived"]
+            and np.isfinite(em["episode_return"])
+            and em["mean_uprightness"] > EVAL_LIMITS["upright"]
+            and em["mean_tracking_error"] < EVAL_LIMITS["tracking"]):
+        raise AssertionError(f"eval: the policy does not walk ({em}; want "
+                             f"{want_steps} steps, {EVAL_LIMITS})")
+
+    # (b) one control step: host clock, each step synchronised, then one
+    # traced step (the kernels of its substeps, device time, idle share);
+    # the robot lands first (the reset state hangs 10 cm up: ~7 control
+    # steps of free fall, which run no contact solve)
+    env.control_inputs.set_orientation(0.0)
+    env.control_inputs.set_velocity_speed_alpha(0.2, 0.0)
+    obs, _ = env.reset()
+    times = []
+    for _ in range(EVAL_WARM_STEPS + EVAL_TIMED_STEPS):
+        with torch.no_grad():
+            a = networks.actor_mean(net, torch.as_tensor(
+                obs, dtype=torch.float32, device="cuda")).cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs, *_ = env.step(np.clip(a, -1.0, 1.0))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times[EVAL_WARM_STEPS:]))
+    fs = env.frame_skip
+    # the trace takes one substep of the env's physics (a whole control
+    # step, ~217k kernels, kept the profiler ~2 minutes); the task layer
+    # around it launches a few hundred a control step
+    ctrl = torch.as_tensor(np.clip(a, -1.0, 1.0), dtype=torch.float32,
+                           device="cuda")[None]
+    t0 = time.perf_counter()
+    dev_s, n_dev, _ = traced(lambda: engine.control_step(
+        env.pm, env._state, ctrl, 1, max_contacts=env._cfg.max_contacts,
+        solver_iterations=env._cfg.solver_iterations))
+    trace_s = time.perf_counter() - t0
+    if n_dev == 0:
+        raise AssertionError("eval: the profiler saw no device activity")
+    sub_s = step_s / fs
+    out["step"] = {"each_s": times, "step_s": step_s,
+                   "substep_ms": 1e3 * sub_s, "substep_device_s": dev_s,
+                   "substep_device_activities": n_dev,
+                   "idle_share": 1.0 - dev_s / sub_s}
+    log(f"eval step (env.step on full at batch 1, median of "
+        f"{EVAL_TIMED_STEPS} after {EVAL_WARM_STEPS} landing steps, host "
+        f"clock, synchronised): "
+        f"{step_s:.4f} s a control step = {1e3 * sub_s:.2f} ms a substep; "
+        f"one traced substep (torch.profiler): {n_dev} kernels and copies, "
+        f"{1e3 * dev_s:.3f} ms on the card = {1e6 * dev_s / n_dev:.2f} us "
+        f"each, the card idle {100 * out['step']['idle_share']:.1f} % of "
+        f"the substep (the trace took {trace_s:.1f} s); card: "
+        f"{rec['card']}")
+
+    # (c) what the trainer's eval costs an iteration: its 20 s episode at
+    # the walking rate of (b), and at the whole cut episode's of (a) (its
+    # first steps fall freely and are cheap), an extrapolation, beside the
+    # train phase's update
+    n_episode = episode_steps(EVAL_EPISODE_S, env.pm.timestep, fs)
+    episode_s = n_episode * step_s
+    update_s = rec.get("train", {}).get("update_s")
+    out["episode_extrapolated_s"] = episode_s
+    out["episode_extrapolated_s_from_a"] = n_episode * out["rollout"]["step_s"]
+    log(f"eval extrapolation (not measured): the trainer's eval episode of "
+        f"{EVAL_EPISODE_S:g} s = {n_episode} control steps at {step_s:.4f} s "
+        f"(b) = {episode_s:.1f} s an iteration ("
+        f"{out['episode_extrapolated_s_from_a']:.1f} s at the "
+        f"{out['rollout']['step_s']:.4f} s of (a)), against an update of "
+        + (f"{float(np.median(update_s)):.3f} s (train phase, median)"
+           if update_s else "(train phase not run)")
+        + f"; card: {rec['card']}")
+
+    # (d) rl.train.main at the default 2,048 envs with the eval on
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        argv = ["--output", run] + EVAL_TRAIN_ARGS
+        if not found["cv2"]:
+            log("eval: no OpenCV on this host, so --no-eval-video (a video "
+                "needs cv2, as in the JAX trainer)")
+            argv.append("--no-eval-video")
+        _, its = train.main(argv)
+        with open(os.path.join(run, "logs", "eval_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        want = episode_steps(0.2, env.pm.timestep, env.frame_skip)
+        if (len(rows) != 1 or set(rows[0]) != EVAL_KEYS
+                or rows[0]["iteration"] != 0 or rows[0]["steps"] != want
+                or not np.isfinite(rows[0]["episode_return"])):
+            raise AssertionError(f"train eval: eval_metrics.jsonl holds "
+                                 f"{rows}")
+        made = {name: os.path.exists(os.path.join(run, *name.split("/")))
+                for name in ("videos/run_0.mp4", "plots/reward_plot_0.png",
+                             "plots/reward_components_0.html")}
+        expect = {"videos/run_0.mp4": found["cv2"],
+                  "plots/reward_plot_0.png": found["matplotlib"],
+                  "plots/reward_components_0.html": True}
+        if made != expect:
+            raise AssertionError(f"train eval: files {made}, want {expect}")
+        out["train"] = {"update_s": its[0].seconds,
+                        "eval_s": its[0].eval_seconds, "row": rows[0]}
+        log(f"eval: rl.train.main {' '.join(EVAL_TRAIN_ARGS)} (2,048 envs, "
+            f"the eval on): update {its[0].seconds:.3f} s, eval episode "
+            f"{its[0].eval_seconds:.3f} s for {rows[0]['steps']} steps "
+            f"(video {'on' if found['cv2'] else 'off'}); "
+            f"eval_metrics.jsonl {rows[0]}; files {made}; card: "
+            f"{rec['card']}")
+
+    got = (cuda_engine.launch_counts[ROLLOUT],
+           cuda_engine.launch_counts[SUBSTEP])
+    if got != (0, 0):
+        raise AssertionError(f"eval: {got[0]} fused and {got[1]} substep "
+                             "launches (want none)")
+    log(f"eval: 0 fused_rollout_cost and 0 substep launches; card: "
+        f"{rec['card']}")
 
 
 def traced(fn):

@@ -270,6 +270,17 @@ def get_full_model() -> PhysicsModel:
     return _cached("full")
 
 
+SNAPSHOTS = ("planning", "fast_plant", "mpc_plant", "full")
+
+
+def get_snapshot(name: str) -> PhysicsModel:
+    """The committed snapshot called ``name``, one of ``SNAPSHOTS``."""
+    if name not in SNAPSHOTS:
+        raise ValueError(f"no model snapshot {name!r}; the snapshots are "
+                         f"{', '.join(SNAPSHOTS)}")
+    return _cached(name)
+
+
 # --------------------------------------------------------------------------
 # domain randomization
 

@@ -3,41 +3,50 @@
 Counterpart of ``quadruped_gym_tpu/rl/train.py``, with its flags and
 defaults and its workflow: an output folder holding
 ``rewards_continuous.csv`` (one row per policy step, the reference's
-schema) and ``policy/`` (the train state and the iteration counter,
-saved every iteration, so a crashed run resumes where it stopped), and an
-optional log-std-clamped fine-tune phase in the same process. It runs on
-the card unless ``main`` is given ``device="cpu"``.
+schema), ``policy/`` (the train state and the iteration counter, saved
+every iteration, so a crashed run resumes where it stopped), ``plots/``
+(per iteration, ``reward_plot_{i}.png`` and
+``reward_components_{i}.html``), and, unless ``--no-eval``, one eval
+episode per iteration of the policy through the gym env
+(``rl/evaluate.py``): a line of ``logs/eval_metrics.jsonl`` and a video
+``videos/run_{i}.mp4``. An optional log-std-clamped fine-tune phase runs
+in the same process; ``--dashboard`` serves the CSV live
+(``utils/server.py``). It runs on the card unless ``main`` is given
+``device="cpu"``.
 
-Not ported yet, so these raise: ``--distributed`` (``rl/distributed.py``,
-ROADMAP.md A.14), ``--dashboard`` (``utils/server.py``) and the
-per-iteration eval rollout, which steps the gym env (``rl/evaluate.py``
-with A.11): pass ``--no-eval``. The per-iteration plots wait for
-``utils/plot.py``; the CSV they are drawn from is written.
+The eval video needs OpenCV and the PNG plot matplotlib; without them
+pass ``--no-eval-video``, and the PNG is skipped with a printed line.
+``--distributed`` is not ported yet (``rl/distributed.py``, ROADMAP.md
+A.14) and raises.
 
-Run:  python -m quadruped_gym_tpu_torch.rl.train --no-eval --output runs/ppo
+Run:  python -m quadruped_gym_tpu_torch.rl.train --output runs/ppo
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 from .._device import resolve_device
 from ..models import spec
 from ..runtime import checkpoint
 from ..tasks import commands, walking
 from ..tasks.rewards import REWARD_KEYS
-from ..utils.metrics import RewardCSVLogger
-from . import ppo
+from ..utils import plot as plot_mod
+from ..utils import server
+from ..utils.metrics import RewardCSVLogger, read_reward_csv
+from . import evaluate, ppo
 
 
 class Iteration(NamedTuple):
     index: int
     seconds: float  # host clock, from the first update to its metrics read
     metrics: ppo.UpdateMetrics  # stacked over the iteration's updates
+    eval_seconds: Optional[float] = None  # host clock of the eval episode
 
 
 def make_env_config(args) -> walking.WalkingConfig:
@@ -86,7 +95,7 @@ def _parser() -> argparse.ArgumentParser:
                         "fixing it")
     p.add_argument("--max-speed", type=float, default=None)
     p.add_argument("--dashboard", action="store_true",
-                   help="serve live metrics on :8050 (not ported yet)")
+                   help="serve live metrics on :8050")
     p.add_argument("--lane-physics", action="store_true",
                    help="step the env physics on the batch-minor leg "
                         "engine instead of the oracle engine")
@@ -100,8 +109,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="clamp the policy log-std from above after each "
                         "minibatch step")
     p.add_argument("--no-eval", action="store_true",
-                   help="skip the per-iteration eval rollout (required "
-                        "until rl/evaluate.py is ported)")
+                   help="skip the per-iteration eval rollout (one "
+                        "episode of the policy through the gym env on the "
+                        "full model, max-time long)")
     p.add_argument("--no-eval-video", action="store_true",
                    help="eval without recording videos/run_{i}.mp4")
     p.add_argument("--video-every", type=int, default=1,
@@ -119,16 +129,11 @@ def main(argv=None, device=None):
         raise NotImplementedError(
             "--distributed (rl/distributed.py) is not ported yet "
             "(ROADMAP.md A.14)")
-    if args.dashboard:
-        raise NotImplementedError(
-            "--dashboard (utils/server.py) is not ported yet (ROADMAP.md)")
-    if not args.no_eval:
-        raise NotImplementedError(
-            "the per-iteration eval (rl/evaluate.py) steps the gym env, "
-            "which is not ported yet (ROADMAP.md A.11): pass --no-eval")
     device = resolve_device(device)
 
     out = args.output
+    os.makedirs(os.path.join(out, "logs"), exist_ok=True)
+    os.makedirs(os.path.join(out, "plots"), exist_ok=True)
     m = spec.get_mpc_plant_model()
     env_cfg = make_env_config(args)
     cfg = ppo.PPOConfig(num_envs=args.num_envs, num_steps=args.num_steps,
@@ -143,8 +148,11 @@ def main(argv=None, device=None):
         print(f"resumed from {ckpt_dir} at iteration {start_iter}",
               flush=True)
 
-    logger = RewardCSVLogger(os.path.join(out, "rewards_continuous.csv"),
-                             REWARD_KEYS)
+    csv_path = os.path.join(out, "rewards_continuous.csv")
+    logger = RewardCSVLogger(csv_path, REWARD_KEYS)
+    if args.dashboard:
+        server.launch_dash(csv_path, block=False)
+        print("dashboard on :8050", flush=True)
     updates_per_iter = max(1, args.timesteps_per_iteration // cfg.batch_size)
 
     # the main run, then (optionally) the log_std-clamped fine-tune
@@ -168,7 +176,6 @@ def main(argv=None, device=None):
             steps_done = updates_per_iter * cfg.batch_size
             logger.log_many(it * updates_per_iter * cfg.num_steps, comp)
             checkpoint.save(ckpt_dir, ts, step=it + 1)
-            history.append(Iteration(it, dt, metrics))
             print(
                 f"iter {it}: {steps_done} steps in {dt:.1f}s "
                 f"({steps_done / dt:,.0f} steps/s), mean step reward "
@@ -176,10 +183,67 @@ def main(argv=None, device=None):
                 f"kl {float(metrics.approx_kl[-1]):.4f}{phase_tag}",
                 flush=True,
             )
+            logger.flush()
+            _plots(out, csv_path, it)
+            eval_s = None
+            if not args.no_eval:
+                t0 = time.perf_counter()
+                _eval(args, out, ts, it, start_iter, device)
+                eval_s = time.perf_counter() - t0
+            history.append(Iteration(it, dt, metrics, eval_s))
     finally:
         logger.close()
     print("done", flush=True)
     return ts, history
+
+
+def _plots(out: str, csv_path: str, it: int) -> None:
+    """The iteration's reward plots from the whole CSV so far."""
+    _, totals, comp, keys = read_reward_csv(csv_path)
+    png = os.path.join(out, "plots", f"reward_plot_{it}.png")
+    if plot_mod.have_matplotlib():
+        plot_mod.plot_data_line(totals, window=50, title="Mean step reward",
+                                save_path=png)
+    else:
+        print(f"  matplotlib not found: {png} not drawn", flush=True)
+    plot_mod.plot_reward_components(
+        comp, keys,
+        os.path.join(out, "plots", f"reward_components_{it}.html"))
+
+
+def _eval(args, out: str, ts: ppo.TrainState, it: int, start_iter: int,
+          device) -> None:
+    """One eval episode of the policy: a fresh gym env under the fixed
+    0.2 m/s command, the deterministic actor, a video every
+    ``--video-every`` iterations (and the last); its metrics appended to
+    ``logs/eval_metrics.jsonl``."""
+    os.makedirs(os.path.join(out, "videos"), exist_ok=True)
+    want_video = not args.no_eval_video and (
+        it % args.video_every == 0
+        or it == start_iter + args.iterations - 1
+    )
+    em = evaluate.eval_rollout(
+        ts.net,
+        obs_window=args.obs_window,
+        max_time=args.max_time,
+        frame_skip=args.frame_skip,
+        partial_obs=not args.full_obs,
+        save_video=want_video,
+        video_path=os.path.join(out, "videos", f"run_{it}.mp4"),
+        seed=args.seed + it,
+        device=device,
+    )
+    em.pop("rewards")
+    em["iteration"] = it
+    with open(os.path.join(out, "logs", "eval_metrics.jsonl"), "a") as f:
+        f.write(json.dumps(em) + "\n")
+    print(
+        f"  eval: return {em['episode_return']:.1f}, "
+        f"{em['steps']} steps, survived={em['survived']}, "
+        f"track_err {em['mean_tracking_error']:.3f} m/s, "
+        f"upright {em['mean_uprightness']:.3f}",
+        flush=True,
+    )
 
 
 if __name__ == "__main__":

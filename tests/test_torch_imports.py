@@ -1,9 +1,13 @@
 """The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``
 nor ``chip_smoke.py`` imports jax, optax, mujoco or the JAX package. The check
-reads the sources' import statements; it imports nothing."""
+reads the sources' import statements; it imports nothing. And each package
+of the port re-exports what its JAX counterpart's ``__init__`` does, for
+every name the port has (read from the JAX sources, imported from the
+port)."""
 
 import ast
 import glob
+import importlib
 import os
 
 import pytest
@@ -35,7 +39,9 @@ def test_sources_found():
                 "integrator", "sensors", "engine"):
         assert f"quadruped_gym_tpu_torch/physics/{mod}.py" in names
     for mod in ("rl/__init__", "rl/networks", "rl/ppo", "rl/train",
-                "runtime/checkpoint", "utils/__init__", "utils/metrics"):
+                "runtime/checkpoint", "utils/__init__", "utils/metrics",
+                "envs/gym_env", "envs/rendering", "rl/evaluate",
+                "utils/plot", "utils/server"):
         assert f"quadruped_gym_tpu_torch/{mod}.py" in names
 
 
@@ -45,3 +51,46 @@ def test_no_jax_imports(path):
     bad = [name for name in _imported(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# what a JAX package __init__ exports that the port does not have yet,
+# with the ROADMAP.md item that brings it
+NOT_PORTED = {
+    "envs": set(),
+    "ops": {"step", "control_step"},  # the lane engine's, A.10
+    "rl": {"distributed"},  # A.14
+    "solvers": {"ilqr", "sqp", "ILQRConfig", "ILQRResult", "SQPConfig",
+                "SQPResult"},  # A.13
+    "utils": set(),
+}
+
+
+def _jax_exports(pkg):
+    """(name, module it comes from) of each name the JAX package's
+    ``pkg/__init__.py`` imports from its own modules."""
+    path = os.path.join(REPO, "quadruped_gym_tpu", pkg, "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            for a in node.names:
+                yield a.name, node.module or a.name
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_PORTED))
+def test_package_exports_match_jax(pkg):
+    port = importlib.import_module(f"quadruped_gym_tpu_torch.{pkg}")
+    missing = set()
+    exports = list(_jax_exports(pkg))
+    assert exports
+    for name, module in exports:
+        src = os.path.join(REPO, "quadruped_gym_tpu_torch", pkg,
+                           module + ".py")
+        has = os.path.exists(src) and (
+            module == name or hasattr(importlib.import_module(
+                f"quadruped_gym_tpu_torch.{pkg}.{module}"), name))
+        if has:
+            assert hasattr(port, name), f"{pkg}.{name} is not exported"
+        else:
+            missing.add(name)
+    assert missing == NOT_PORTED[pkg]

@@ -1,14 +1,18 @@
-"""The trainer, its checkpoints and its reward CSV, on the CPU.
+"""The trainer, its checkpoints, its reward CSV, plots and dashboard, on
+the CPU.
 
 ``runtime/checkpoint.py`` round-trips a train state bit for bit (the
 generator's state and Adam's step included) and reads what the JAX
 package's ``checkpoint.save`` wrote; ``utils/metrics.py`` writes the JAX
-logger's bytes; ``rl/train.main`` trains 4 envs x 4 steps for 2
-iterations, resumes at iteration 2 exactly where an uninterrupted run
-would be, and refuses the flags whose modules are not ported."""
+logger's bytes, ``utils/plot.py`` the JAX overview's and
+``utils/server.py`` serves what the JAX dashboard serves; ``rl/train.
+main`` trains 4 envs x 4 steps for 2 iterations, resumes at iteration 2
+exactly where an uninterrupted run would be, runs its per-iteration eval,
+plots and dashboard, and refuses ``--distributed``."""
 
 import json
 import os
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,8 @@ from torch_jax_cache import no_cache_files  # noqa: F401 (autouse fixture)
 from quadruped_gym_tpu.rl import networks as jnet
 from quadruped_gym_tpu.runtime import checkpoint as jcheckpoint
 from quadruped_gym_tpu.utils import metrics as jmetrics
+from quadruped_gym_tpu.utils import plot as jplot
+from quadruped_gym_tpu.utils import server as jserver
 from quadruped_gym_tpu_torch import convert
 from quadruped_gym_tpu_torch.models import spec as tspec
 from quadruped_gym_tpu_torch.rl import networks as tnet
@@ -27,7 +33,7 @@ from quadruped_gym_tpu_torch.rl import ppo as tppo
 from quadruped_gym_tpu_torch.rl import train
 from quadruped_gym_tpu_torch.runtime import checkpoint
 from quadruped_gym_tpu_torch.tasks import walking as twalk
-from quadruped_gym_tpu_torch.utils import metrics
+from quadruped_gym_tpu_torch.utils import metrics, plot, server
 
 TM = tspec.get_mpc_plant_model()
 SMALL = ["--num-envs", "4", "--num-steps", "4",
@@ -195,10 +201,6 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     out = ["--output", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="A.14"):
         train.main(out + ["--distributed", "--no-eval"], device="cpu")
-    with pytest.raises(NotImplementedError, match="server.py"):
-        train.main(out + ["--dashboard", "--no-eval"], device="cpu")
-    with pytest.raises(NotImplementedError, match="--no-eval"):
-        train.main(out, device="cpu")
     with pytest.raises(NotImplementedError, match="A.14"):
         tppo.update_fn(TM, twalk.WalkingConfig(), tppo.PPOConfig(),
                        axis_name="data")
@@ -209,6 +211,108 @@ def test_train_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tppo.init_train_state(TM, twalk.WalkingConfig(),
                                   tppo.PPOConfig(num_envs=1), 0)
+    assert not os.listdir(tmp_path)
+
+
+# the keys of a line of the JAX trainer's eval_metrics.jsonl: its
+# eval_rollout's metrics without "rewards", plus "iteration"
+EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
+             "final_tracking_error", "mean_uprightness", "command_speed",
+             "iteration"}
+
+
+def _get(srv, path):
+    host, port = srv.server_address[:2]
+    with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                timeout=30) as r:
+        return r.read()
+
+
+def test_train_main_evals_plots_and_serves(tmp_path, monkeypatch, capsys):
+    """The trainer's default iteration: an eval episode (0.09 s at
+    frame_skip 2: 23 steps on the full model), a video, the plots, and
+    the dashboard (on a free port here) serving the run's CSV."""
+    served, real = [], server.launch_dash
+
+    def launch(csv_path, block=True):
+        served.append(real(csv_path, port=0, block=block))
+        return served[-1]
+
+    monkeypatch.setattr(server, "launch_dash", launch)
+    out = str(tmp_path / "run")
+    small = [a for a in SMALL if a != "--no-eval"]
+    ts, hist = train.main(["--output", out, "--iterations", "2",
+                           "--max-time", "0.09", "--video-every", "2",
+                           "--dashboard"] + small, device="cpu")
+    try:
+        assert len(served) == 1
+        data = json.loads(_get(served[0], "/data"))
+        steps, totals, comp, keys = _csv(out)
+        assert data["keys"] == list(keys) and len(data["rows"]) == 8
+        np.testing.assert_allclose(np.asarray(data["rows"])[:, 2:], comp,
+                                   rtol=1e-15)
+    finally:
+        for srv in served:
+            srv.shutdown()
+            srv.server_close()
+    printed = capsys.readouterr().out
+    assert "dashboard on :8050" in printed
+    assert printed.count("  eval: return") == 2
+    with open(os.path.join(out, "logs", "eval_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["iteration"] for r in rows] == [0, 1]
+    for r in rows:
+        assert set(r) == EVAL_KEYS
+        assert r["steps"] == 23 and r["command_speed"] == 0.2
+        assert np.isfinite(r["episode_return"])
+    assert all(h.eval_seconds > 0 for h in hist)
+    # a video at iteration 0 (every 2nd) and at the last, 1
+    for it in (0, 1):
+        assert os.path.getsize(os.path.join(out, "videos",
+                                            f"run_{it}.mp4")) > 0
+        for f in (f"reward_plot_{it}.png", f"reward_components_{it}.html"):
+            assert os.path.getsize(os.path.join(out, "plots", f)) > 0
+
+
+def test_dashboard_serves_what_the_jax_dashboard_serves(tmp_path):
+    rows = np.random.default_rng(1).standard_normal((7, 11))
+    csv_path = str(tmp_path / "rewards_continuous.csv")
+    log = metrics.RewardCSVLogger(csv_path)
+    log.log_many(0, rows)
+    log.close()
+    servers = [jserver.launch_dash(csv_path, port=0, block=False),
+               server.launch_dash(csv_path, port=0, block=False)]
+    try:
+        (jdata, jpage), (tdata, tpage) = [
+            (json.loads(_get(s, "/data")), _get(s, "/")) for s in servers]
+        assert tdata == jdata and len(tdata["rows"]) == 7
+        assert tpage == jpage
+        os.remove(csv_path)
+        assert json.loads(_get(servers[1], "/data")) == {"keys": [],
+                                                         "rows": []}
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+
+
+def test_plots_match_the_jax_plots(tmp_path):
+    rng = np.random.default_rng(2)
+    comp = rng.standard_normal((2500, 11))
+    keys = list(metrics.REWARD_KEYS)
+    for mod, name in ((jplot, "jax"), (plot, "port")):
+        mod.plot_reward_components(comp, keys, str(tmp_path / f"{name}.html"))
+    assert (tmp_path / "port.html").read_bytes() == \
+        (tmp_path / "jax.html").read_bytes()
+    np.testing.assert_array_equal(plot.moving_average(comp[:, 0], 7),
+                                  jplot.moving_average(comp[:, 0], 7))
+    assert plot.have_matplotlib()
+    for fn, arg in ((plot.plot_data_line, 50), (plot.plot_data, 40)):
+        path = str(tmp_path / f"{fn.__name__}.png")
+        assert fn(comp[:, 0], arg, save_path=path) == path
+        assert os.path.getsize(path) > 0
+    path = str(tmp_path / "components.png")
+    assert plot.plot_reward_components(comp[:300], keys, path) == path
 
 
 def test_make_env_config_matches_the_jax_trainer():
