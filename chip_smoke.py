@@ -22,6 +22,10 @@ Phases, each of which raises on failure (nothing is caught):
    (``full``, 24 contacts, the model's Newton budget), in float32 with
    the base far from the world origin against float64, and its float32
    products are true FP32 even while the process-wide TF32 flag is on.
+   The gradient solvers (plain PyTorch through ``torch.func``): the
+   forward-mode and finite-difference linearizations of H=2 steps from a
+   planning-model state in contact (1e-9), and one SQP iteration at H=4
+   (its controls and cost, 1e-8), card against CPU in float64.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -42,18 +46,19 @@ Phases, each of which raises on failure (nothing is caught):
    engine on the ``mpc_plant`` model (feet, shins and ankle servos with
    full hulls) for 200 control steps of ``closed_loop`` under a 0.15 m/s
    forward command, float32. The walk must be finite, upright and go
-   forward (limits at ``WALK_LIMITS``). Then 20 steps of
-   ``delayed_closed_loop`` with the oracle plant and 20 with the
-   leg-engine plant, the period's split into plan and plant, timed
-   with a synchronise after each part, and one traced call of each
-   (``torch.profiler``): the kernels the card ran and its idle share.
+   forward (limits at ``WALK_LIMITS``). Then 4 steps of
+   ``delayed_closed_loop`` with the oracle plant and 4 with the
+   leg-engine plant, the period's split into plan and plant over 2
+   periods, timed with a synchronise after each part, and one traced
+   call of each (``torch.profiler``): the kernels the card ran and its
+   idle share.
 8. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
    ``mpc_plant`` model on the oracle engine at frame_skip 10, 12
    contacts, 4 Newton passes, partial observation over 10 frames,
    hidden (256, 256, 128), 4 epochs x 8 minibatches, float32) through
-   ``rl.train.main``: 2 iterations of one update into a temporary
-   directory, then a resume that continues at iteration 2 with one
-   update and one fine-tune update (log_std <= -1.2). Metrics finite,
+   ``rl.train.main``: 1 iteration of one update into a temporary
+   directory, then a resume that continues at iteration 1 with one
+   fine-tune update (log_std <= -1.2). Metrics finite,
    32 CSV rows an update, the checkpoint's step after each call, the
    parameters on the card. Then one update timed in two parts (rollout,
    learning), a synchronise after each, one traced update
@@ -77,13 +82,25 @@ Phases, each of which raises on failure (nothing is caught):
    cut to one update of 2 env steps and a 0.2 s eval episode, its
    ``logs/eval_metrics.jsonl`` row, plots and video checked. Neither
    kernel runs on this path (the gym env steps the oracle engine).
-10. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+10. grad: the gradient solvers through their entry points, float32:
+   ``examples/torch_gait_sqp.py``'s ``main`` at its defaults (fast plant,
+   H=50, frame_skip 5, 12 contacts, 4 Newton passes, the stance settled
+   for 400 steps, the sine warm start) with SQP (1 of 10 iterations; it
+   must descend) and iLQR (1 iteration; never above its initial cost),
+   and one SQP iteration with ``--linearize fd``: costs, the seconds of
+   each part of an iteration, the re-rollout's walk;
+   ``examples/torch_closed_loop_gradient.py``'s ``main`` with SQP and
+   iLQR (1 of 100 control steps) and the plant's share of a period; 1
+   step of ``delayed_closed_loop`` with SQP; one gait SQP iteration
+   traced in parts around the settled stance (``torch.profiler``:
+   kernels, device time, idle share). Neither kernel runs on this path.
+11. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 9 each set the launch counters to 0 just before driving
+Phases 4 to 10 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -106,7 +123,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "check", "main", "plan", "env", "loop", "train",
-          "eval", "time")
+          "eval", "grad", "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -137,17 +154,18 @@ WALK_STEPS = 200
 WALK_SPEED = 0.15
 WALK_LIMITS = {"forward_m": 0.15, "sideways_m": 0.10, "upright": 0.9}
 # the delayed loop, on each plant engine (cut from 20 steps: its lane
-# plant takes ~5 s a period)
-DELAYED_STEPS = 10
-SPLIT_PERIODS = 5
+# plant takes ~5 s a period); the loop split's periods (cut from 5: each
+# runs the lane plant too)
+DELAYED_STEPS = 4
+SPLIT_PERIODS = 2
 # the train phase: rl.train.main's defaults, one update an iteration
 TRAIN_ARGS = ["--timesteps-per-iteration", "65536", "--no-eval"]
 LANE_TRAIN_STEPS = 2
 # env steps of the traced rollout: a whole one (32 steps, 1.27M kernels)
 # kept the profiler busy for ~10 minutes on the H100's host
 TRACE_ENV_STEPS = 2
-POLICY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "artifacts", "walk_r5", "policy_params")
+REPO = os.path.dirname(os.path.abspath(__file__))
+POLICY = os.path.join(REPO, "artifacts", "walk_r5", "policy_params")
 # the network on the card in float32 against float64 on the CPU, relative
 # to the largest output: FP32 rounding over 4 layers of <= 260 inputs is
 # ~1e-6; TF32 products would miss by ~1e-3
@@ -161,11 +179,25 @@ EVAL_MAX_TIME = 0.6
 EVAL_EPISODE_S = 20.0  # rl.train's --max-time: the episode it evals
 EVAL_LIMITS = {"upright": 0.9, "tracking": 0.5}
 EVAL_WARM_STEPS = 8
-EVAL_TIMED_STEPS = 4
+EVAL_TIMED_STEPS = 2
 # rl.train.main at its defaults (2,048 envs), cut to one update of 2 env
 # steps and an eval episode of 0.2 s (10 control steps)
 EVAL_TRAIN_ARGS = ["--num-steps", "2", "--timesteps-per-iteration", "4096",
                    "--iterations", "1", "--max-time", "0.2"]
+# the gradient solvers against the CPU, float64: A and B of both
+# linearizers, and one SQP iteration's controls and cost
+GRAD_LIN_TOL = 1e-9
+GRAD_SQP_TOL = 1e-8
+# the grad phase: examples/torch_gait_sqp.py at its defaults (H=50,
+# frame_skip 5, fast plant, float32), cut from 10 iterations; one FD
+# iteration; examples/torch_closed_loop_gradient.py cut from 100 control
+# steps; the delayed loop with SQP. On the card every rollout of H=50
+# control steps takes ~15-18 s (250 host-bound substeps), and a solve
+# makes one per iteration plus its initial guess's.
+GAIT_ITERS = {"sqp": 1, "ilqr": 1}
+GAIT_FD_ITERS = 1
+GRAD_LOOP_STEPS = 1
+GRAD_DELAYED_STEPS = 1
 EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
              "final_tracking_error", "mean_uprightness", "command_speed",
              "iteration"}
@@ -474,6 +506,7 @@ def phase_check(rec):
     )
     check_refused_launch(rec)
     check_oracle(rec)
+    check_gradient(rec)
 
 
 def oracle_states(m, dtype, device, **kw):
@@ -609,6 +642,80 @@ def check_oracle(rec):
                              "float32 products are not pinned to FP32")
     rec["oracle_check"] = dict(errs, tf32_bare_rel_err=bare,
                                fp32_kept_rel_err=kept)
+
+
+def check_gradient(rec):
+    """The gradient solvers are plain PyTorch through ``torch.func``: on
+    the card in float64 they must compute what the CPU computes. Both
+    linearizations of H=2 steps from a planning-model state in contact,
+    and one SQP iteration at H=4 from it."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.physics import engine
+    from quadruped_gym_tpu_torch.solvers import ilqr, rollout, sqp
+
+    f64 = torch.float64
+    m = spec.get_planning_model()
+    kw = dict(max_contacts=8, solver_iterations=4)
+    sts, _ = oracle_states(m, f64, "cpu", **kw)
+    st_cpu = sts["contact"]
+    rng = np.random.default_rng(22)
+    hold = prev_ctrl(f64, "cpu")
+    errs = {}
+
+    def on(x, dev):
+        if isinstance(x, tuple):
+            return type(x)(*(on(v, dev) for v in x))
+        return x.to(dev)
+
+    def step_fn(st, u):
+        return engine.control_step(m, st, u, 2, **kw)
+
+    us = torch.clamp(hold + 0.2 * torch.as_tensor(
+        rng.standard_normal((2, m.nu))), -1.0, 1.0)
+    traj = [step_fn(st_cpu, us[0])]
+    traj.append(step_fn(traj[0], us[1]))
+    states = type(st_cpu)(*(torch.stack(x) for x in zip(*traj)))
+    ncon = int(engine.forward(m, st_cpu, hold, **kw).ncon_active)
+    for name, lin in (("ad", lambda *a: ilqr.ad_linearize(m, step_fn, *a)),
+                      ("fd", lambda *a: ilqr.fd_linearize(m, step_fn, *a,
+                                                          1e-5))):
+        want = lin(st_cpu, states, us)
+        got = lin(on(st_cpu, "cuda"), on(states, "cuda"), on(us, "cuda"))
+        for label, g, w in zip("AB", got, want):
+            err = float((g.cpu() - w).abs().max())
+            errs[f"{name}_linearize_{label}"] = err
+            if not err <= GRAD_LIN_TOL * (1.0 + float(w.abs().max())):
+                raise AssertionError(f"{name}_linearize {label}: the card "
+                                     f"differs from the CPU by {err:.3e}")
+    log(f"check gradient linearizers f64 planning H=2 frame_skip 2 "
+        f"({ncon} active rows at the start): card vs CPU max_abs_err "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {GRAD_LIN_TOL:g} relative to 1 + max|A|)")
+
+    cfg = sqp.SQPConfig(iterations=1, rollout=rollout.RolloutConfig(
+        horizon=4, frame_skip=2, **kw))
+    cost_fn = rollout.make_cost_fn(m, vel_smooth_eps=0.02)
+    us0 = torch.clamp(hold + 0.2 * torch.as_tensor(
+        rng.standard_normal((4, m.nu))), -1.0, 1.0)
+    want = sqp.solve(m, cfg, cost_fn, st_cpu, us0, command(f64, "cpu"),
+                     hold)
+    got = sqp.solve(m, cfg, cost_fn, on(st_cpu, "cuda"), on(us0, "cuda"),
+                    command(f64, "cuda"), on(hold, "cuda"))
+    for f in ("ctrl_seq", "cost", "initial_cost", "cost_history"):
+        g, w = getattr(got, f).cpu(), getattr(want, f)
+        err = float((g - w).abs().max())
+        errs[f"sqp_{f}"] = err
+        if not err <= GRAD_SQP_TOL * (1.0 + float(w.abs().max())):
+            raise AssertionError(f"sqp.solve {f}: the card differs from the "
+                                 f"CPU by {err:.3e}")
+    if not float(want.cost) < float(want.initial_cost):
+        raise AssertionError("sqp.solve did not descend on the CPU")
+    log(f"check gradient sqp.solve f64 planning H=4, 1 iteration: cost "
+        f"{float(want.initial_cost):.6f} -> {float(got.cost):.6f}; card vs "
+        f"CPU max_abs_err ctrl_seq {errs['sqp_ctrl_seq']:.2e} cost "
+        f"{errs['sqp_cost']:.2e} (tol {GRAD_SQP_TOL:g} relative to 1 + "
+        "max|x|)")
+    rec["gradient_check"] = errs
 
 
 def check_refused_launch(rec):
@@ -1210,10 +1317,11 @@ def phase_train(rec):
         # and one of fine-tune
         run_dir = os.path.join(tmp, "run")
         cuda_engine.reset_launch_counts()
-        ts, its = train_run(rec, run_dir, TRAIN_ARGS + ["--iterations", "2"],
-                            0, 2, n_step)
+        # (cut from 2 + 1 + 1 updates: the fine-tune update resumes too)
+        ts, its = train_run(rec, run_dir, TRAIN_ARGS + ["--iterations", "1"],
+                            0, 1, n_step)
         ts, its2 = train_run(rec, run_dir, TRAIN_ARGS + [
-            "--iterations", "1", "--finetune-iterations", "1"], 2, 2, n_step)
+            "--iterations", "0", "--finetune-iterations", "1"], 1, 1, n_step)
         no_kernels("train")
         if not float(ts.net.log_std.detach().max()) <= -1.2:
             raise AssertionError("train: the fine-tune left log_std above "
@@ -1491,6 +1599,221 @@ def phase_eval(rec):
         f"{rec['card']}")
 
 
+def _example(name):
+    """The module ``examples/<name>.py`` (the examples are scripts, not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gait_run(rec, gait, tmp, solver, iters, extra=()):
+    """``torch_gait_sqp.main`` on the card, checked: finite costs, the
+    controls inside the actuator box, never above the initial cost.
+    Returns the report's run."""
+    out = os.path.join(tmp, f"gait_{solver}_{len(os.listdir(tmp))}.json")
+    argv = ["--solver", solver, "--iterations", str(iters), "--split",
+            *extra, "--out", out]
+    t0 = time.perf_counter()
+    report = gait.main(argv)
+    wall = time.perf_counter() - t0
+    run = report["runs"][0]
+    costs = [run["initial_cost"], *run["cost_history"]]
+    if not (np.isfinite(costs).all() and np.isfinite(
+            report["standing_hold_cost"])):
+        raise AssertionError(f"gait {solver} {extra}: non-finite costs "
+                             f"{costs}")
+    if not run["ctrl_within_range"]:
+        raise AssertionError(f"gait {solver}: controls outside the box")
+    if not max(run["cost_history"]) <= run["initial_cost"]:
+        raise AssertionError(f"gait {solver}: cost rose {costs}")
+    split = run["split_s_per_iteration"]
+    log(f"grad gait {solver} {' '.join(extra)} (torch_gait_sqp.main "
+        f"{' '.join(argv[:-2])}; fast plant, H={report['horizon']}, "
+        f"frame_skip {report['frame_skip']}, 12 contacts, 4 Newton passes, "
+        f"float32, vel_smooth_eps {report['vel_smooth_eps']}): hold cost "
+        f"{report['standing_hold_cost']:.2f}; cost {run['initial_cost']:.2f} "
+        f"-> history {[round(c, 2) for c in run['cost_history']]}; "
+        f"descended {run['final_cost'] < run['initial_cost']}; card: "
+        f"{rec['card']}")
+    log(f"grad gait {solver} {' '.join(extra)} time: solve "
+        f"{run['solve_time_s']:.3f} s = {run['per_iteration_s']:.3f} s an "
+        f"iteration (host clock, the first rollout included); the initial "
+        f"guess's rollout {run['rollout_s']:.3f} s; split per iteration (a "
+        f"synchronise after each part): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+        + f"; the whole call {wall:.1f} s (settle, hold rollout, solve, "
+        f"re-rollout); card: {rec['card']}")
+    log(f"grad gait {solver} {' '.join(extra)} re-rollout: forward "
+        f"{100 * run['forward_displacement_m']:.2f} cm, mean local vx "
+        f"{run['mean_local_vx']:.4f} m/s, final height "
+        f"{run['final_height']:.4f} m, min uprightness "
+        f"{run['min_uprightness']:.4f}")
+    return dict(run, hold_cost=report["standing_hold_cost"], call_s=wall)
+
+
+def phase_grad(rec):
+    """The gradient solvers through their two entry points on the card:
+    gait SQP and iLQR at ``examples/gait_sqp.py``'s defaults (cut in
+    iterations), one FD SQP iteration, the receding-horizon loops of
+    ``examples/closed_loop_gradient.py`` (cut in steps), the delayed loop
+    with SQP, and one gait SQP iteration traced in parts. No kernel runs
+    on this path (the solvers step the oracle engine)."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics import engine, maths
+    from quadruped_gym_tpu_torch.runtime import mpc_runtime
+    from quadruped_gym_tpu_torch.solvers import ilqr, sqp
+
+    gait = _example("torch_gait_sqp")
+    loop = _example("torch_closed_loop_gradient")
+    out = {}
+    rec["grad"] = out
+    cuda_engine.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1-3. the gait optimizations (one settle, shared)
+        t0 = time.perf_counter()
+        out["sqp"] = gait_run(rec, gait, tmp, "sqp", GAIT_ITERS["sqp"])
+        out["first_call_s"] = time.perf_counter() - t0
+        if not out["sqp"]["final_cost"] < out["sqp"]["initial_cost"]:
+            raise AssertionError("grad: gait SQP did not descend")
+        out["ilqr"] = gait_run(rec, gait, tmp, "ilqr", GAIT_ITERS["ilqr"])
+        out["sqp_fd"] = gait_run(rec, gait, tmp, "sqp", GAIT_FD_ITERS,
+                                 ("--linearize", "fd", "--fd-eps", "3e-4"))
+        log(f"grad gait: the first call (settle to stance, 400 steps at the "
+            f"model's Newton budget, included) took {out['first_call_s']:.1f}"
+            f" s; card: {rec['card']}")
+
+        # 4. the receding-horizon loops, then one period split into plan
+        # and plant, a synchronise after each
+        for solver in ("sqp", "ilqr"):
+            argv = ["--solver", solver, "--steps", str(GRAD_LOOP_STEPS),
+                    "--out", os.path.join(tmp, f"loop_{solver}.json")]
+            rep = loop.main(argv)
+            if not rep["all_finite"]:
+                raise AssertionError(f"grad loop {solver}: non-finite")
+            # the plant's part of a period, timed alone (its plan is the
+            # rest of the period)
+            args = loop._parser().parse_args(argv)
+            pm, cfg, cost_fn, cmd, phys, carry = loop.setup(args, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.control_step(pm, phys, carry.prev_ctrl,
+                                cfg.plant_frame_skip,
+                                max_contacts=cfg.plant_max_contacts,
+                                solver_iterations=cfg.plant_solver_iterations)
+            torch.cuda.synchronize()
+            plant = time.perf_counter() - t0
+            out[f"loop_{solver}"] = dict(rep, plant_s=plant,
+                                         plan_s=rep["period_s"] - plant)
+            log(f"grad loop {solver} (torch_closed_loop_gradient.main, "
+                f"planning model H=20, {GRAD_LOOP_STEPS} of 100 steps, "
+                f"0.15 m/s): {rep['period_s']:.3f} s a period (host clock, "
+                f"one synchronise at the end): the plant {plant:.3f} s "
+                f"(timed alone), the plan the other "
+                f"{rep['period_s'] - plant:.3f} s; travelled "
+                f"{rep['traveled_xy_m']} m, uprightness min "
+                f"{rep['uprightness_min']:.4f}; card: {rec['card']}")
+
+        args = loop._parser().parse_args(["--solver", "sqp"])
+        pm, cfg, cost_fn, cmd, phys, carry = loop.setup(args, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, end, (ctrls, sens, costs) = mpc_runtime.delayed_closed_loop(
+            pm, cfg, cost_fn, carry, phys, cmd, GRAD_DELAYED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (ctrls, sens, costs, end.qpos)):
+            raise AssertionError("grad delayed loop: non-finite values")
+        if not bool((ctrls[0] == carry.prev_ctrl).all()):
+            raise AssertionError("grad delayed loop: step 0 did not apply "
+                                 "the standing control")
+        out["delayed_sqp_period_s"] = wall / GRAD_DELAYED_STEPS
+        log(f"grad delayed_closed_loop sqp ({GRAD_DELAYED_STEPS} steps, "
+            f"predictor auto = aos): {wall / GRAD_DELAYED_STEPS:.3f} s a "
+            f"period; card: {rec['card']}")
+
+    # 5. one gait SQP iteration traced in parts: the linearization, the
+    # cost expansion, the QP and the line search, around the settled
+    # stance held over the horizon (the kernels do not depend on the
+    # trajectory; a rollout of the warm start would cost ~15 s); the
+    # linearization and a line-search control step traced for one of
+    # their frame_skip substeps (each substep launches the same kernels:
+    # the profiler takes ~1-2 ms an event, so a whole iteration, ~1M
+    # kernels, would keep it busy for ~20 minutes) and scaled
+    t_trace = time.perf_counter()
+    m, dt, dev = gait.spec.get_fast_plant_model(), torch.float32, "cuda"
+    defaults = gait._parser().parse_args([])
+    rcfg, cost_fn, cmd, prev = gait.problem(
+        m, dt, torch.device(dev), defaults.horizon, defaults.frame_skip,
+        defaults.speed, defaults.smooth_eps)
+    cfg = sqp.SQPConfig(rollout=rcfg)
+    st0 = gait.settle_state(dt, torch.device(dev))
+    us = gait.sine_warm_start(rcfg.horizon, rcfg.frame_skip * m.timestep, dt,
+                              dev)
+    states = type(st0)(*(x.expand((rcfg.horizon,) + x.shape) for x in st0))
+    fs = rcfg.frame_skip
+    substep_fn = ilqr._step_fn(m, dataclasses.replace(rcfg, frame_skip=1))
+    alphas = torch.as_tensor(cfg.alphas, dtype=dt, device=dev)
+    cand0 = type(st0)(*(x.expand((len(cfg.alphas),) + x.shape) for x in st0))
+    box = ilqr._ctrl_range(m, us)
+
+    def qp(A, B, quad):
+        lx, lxx, lu, luu = quad
+        Hqp, g = sqp.condense(sqp.sensitivities(A, B), lx, lxx)
+        Hqp, g = sqp._add_control_blocks(Hqp, g, lu, luu)
+        H = rcfg.horizon
+        return sqp.admm_box_qp(Hqp + cfg.reg * torch.eye(
+            H * m.nu, dtype=dt, device=dev), g, box[0].repeat(H) - us.reshape(
+            -1), box[1].repeat(H) - us.reshape(-1), cfg.qp_iterations)
+
+    with maths.true_fp32():
+        lin_dev, lin_n, (A, B) = traced(lambda: ilqr.ad_linearize(
+            m, substep_fn, st0, states, us))
+        quad_dev, quad_n, quad = traced(lambda: ilqr.quadratize_cost(
+            m, cost_fn, cmd, states, us, prev))
+        qp_dev, qp_n, _ = traced(lambda: qp(A, B, quad))
+        ls_dev, ls_n, _ = traced(lambda: substep_fn(
+            cand0, torch.clamp(us[0] + 0.0 * alphas[:, None], *box)))
+    lin_dev, lin_n, ls_dev, ls_n = (fs * lin_dev, fs * lin_n, fs * ls_dev,
+                                    fs * ls_n)
+    split = out["sqp"]["split_s_per_iteration"]
+    H = rcfg.horizon
+    it_dev = lin_dev + quad_dev + qp_dev + H * ls_dev
+    it_wall = sum(split.values())
+    out["trace"] = {
+        "linearize": [lin_dev, lin_n], "quadratize": [quad_dev, quad_n],
+        "qp": [qp_dev, qp_n], "line_search_step": [ls_dev, ls_n],
+        "iteration_device_s": it_dev,
+        "iteration_kernels": lin_n + quad_n + qp_n + H * ls_n,
+        "idle_share": 1.0 - it_dev / it_wall}
+    tr = out["trace"]
+    log(f"grad trace (torch.profiler, one gait SQP iteration in parts; device"
+        f" time and kernels + copies; the linearization and the line-search "
+        f"step from one substep x{fs}): linearize {1e3 * lin_dev:.2f} ms / "
+        f"{lin_n} ({1 - lin_dev / split['linearize']:.3f} idle), quadratize "
+        f"{1e3 * quad_dev:.2f} ms / {quad_n} "
+        f"({1 - quad_dev / split['quadratize']:.3f} idle), qp "
+        f"{1e3 * qp_dev:.2f} ms / {qp_n} ({1 - qp_dev / split['qp']:.3f} "
+        f"idle), one line-search control step {1e3 * ls_dev:.2f} ms / {ls_n} "
+        f"(x{H}: {1 - H * ls_dev / split['line_search']:.3f} idle); the "
+        f"iteration {1e3 * it_dev:.1f} ms and {tr['iteration_kernels']} on "
+        f"the card against {it_wall:.3f} s: the card idle "
+        f"{100 * tr['idle_share']:.1f} % (the trace took "
+        f"{time.perf_counter() - t_trace:.1f} s); card: {rec['card']}")
+    got = (cuda_engine.launch_counts[ROLLOUT],
+           cuda_engine.launch_counts[SUBSTEP])
+    if got != (0, 0):
+        raise AssertionError(f"grad: {got[0]} fused and {got[1]} substep "
+                             "launches (want none)")
+    log(f"grad: 0 fused_rollout_cost and 0 substep launches; card: "
+        f"{rec['card']}")
+
+
 def traced(fn):
     """(device seconds, device activities, ``fn()``) under
     ``torch.profiler``: the summed durations and the number of the kernels
@@ -1500,8 +1823,9 @@ def traced(fn):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity only: recording every host op as well doubled
+    # the events the profiler has to turn into Python objects
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     on_card = [ev for ev in prof.events()

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._functorch.pyfunctorch import temporarily_clear_interpreter_stack
 
 from ..models.spec import JNT_FREE, JNT_HINGE, PhysicsModel
 from . import maths
@@ -84,9 +85,16 @@ def consts(m: PhysicsModel, dtype, device) -> types.SimpleNamespace:
     call; the tensors go when the model does."""
     cache = m.__dict__.setdefault("_consts_cache", {})
     key = (dtype, torch.device(device))
-    if key in cache:
-        return cache[key]
+    if key not in cache:
+        # built with every ``torch.func`` transform popped: a tensor made
+        # under the first caller's transform would be wrapped at its level
+        # and escape through the cache into later calls at other levels
+        with temporarily_clear_interpreter_stack():
+            cache[key] = _build_consts(m, dtype, device)
+    return cache[key]
 
+
+def _build_consts(m: PhysicsModel, dtype, device) -> types.SimpleNamespace:
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
                                device=device)
@@ -158,7 +166,6 @@ def consts(m: PhysicsModel, dtype, device) -> types.SimpleNamespace:
     c.body_imat = maths.quat_to_mat(f(m.body_iquat))
     c.col_geom_mat = maths.quat_to_mat(f(m.col_geom_quat))
     c.site_mat = maths.quat_to_mat(f(m.site_quat))
-    cache[key] = c
     return c
 
 

@@ -1,11 +1,10 @@
 """Receding-horizon MPC runtime: plan -> apply -> shift.
 
-Counterpart of ``quadruped_gym_tpu/runtime/mpc_runtime.py`` for the
-sampling solvers (MPPI and CEM): the carry, one solve (``plan_and_act``)
-and the two closed loops that drive a plant with it. SQP and iLQR are not
-ported yet. Everything runs on the device of the carry's tensors; the
-loops are Python loops that never read a tensor back, so the host only
-enqueues work.
+Counterpart of ``quadruped_gym_tpu/runtime/mpc_runtime.py``: the carry,
+one solve (``plan_and_act``, by MPPI, CEM, SQP or iLQR) and the two closed
+loops that drive a plant with it. Everything runs on the device of the
+carry's tensors; the loops are Python loops that never read a tensor back,
+so the host only enqueues work.
 """
 
 from __future__ import annotations
@@ -21,34 +20,38 @@ from ..models.spec import PhysicsModel
 from ..physics import engine
 from ..physics.engine import State
 from ..solvers import cem as cem_mod
+from ..solvers import ilqr as ilqr_mod
 from ..solvers import mppi as mppi_mod
 from ..solvers import rollout as rollout_mod
+from ..solvers import sqp as sqp_mod
 from ..tasks.commands import Command
-
-_PORTED_SOLVERS = ("mppi", "cem")
 
 
 @dataclasses.dataclass(frozen=True)
 class MPCConfig:
-    solver: str = "mppi"  # "mppi" | "cem" ("sqp" and "ilqr" are not ported)
+    solver: str = "mppi"  # "mppi" | "cem" | "sqp" | "ilqr"
     mppi: mppi_mod.MPPIConfig = mppi_mod.MPPIConfig()
     cem: cem_mod.CEMConfig = cem_mod.CEMConfig()
+    # gradient solvers for receding-horizon use: few iterations per
+    # period, warm-started from the shifted incumbent plan. Pair with a
+    # smoothed cost (rollout.make_cost_fn(m, vel_smooth_eps>0)): the exact
+    # cost's quadratization is blind at stance.
+    sqp: sqp_mod.SQPConfig = sqp_mod.SQPConfig(iterations=1)
+    ilqr: ilqr_mod.ILQRConfig = ilqr_mod.ILQRConfig(iterations=2)
     # plant (the "real" robot) stepping
     plant_frame_skip: int = 5
     # the oracle plant's contact and Newton budgets (None: the model's)
     plant_max_contacts: int = 24
     plant_solver_iterations: Optional[int] = None
 
-    def __post_init__(self):
-        if self.solver not in _PORTED_SOLVERS:
-            raise NotImplementedError(
-                f"solver {self.solver!r} is not ported yet "
-                "(ROADMAP.md A.13); use 'mppi' or 'cem'")
-
     @property
     def rollout(self) -> rollout_mod.RolloutConfig:
-        return {"mppi": self.mppi.rollout,
-                "cem": self.cem.rollout}[self.solver]
+        return {
+            "mppi": self.mppi.rollout,
+            "cem": self.cem.rollout,
+            "sqp": self.sqp.rollout,
+            "ilqr": self.ilqr.rollout,
+        }[self.solver]
 
 
 class MPCCarry(NamedTuple):
@@ -114,19 +117,29 @@ def plan_and_act(
     cmd: Command,
 ):
     """One MPC solve: returns (ctrl_to_apply, new_carry, info_dict). The
-    carry's generator advances in place."""
+    carry's generator advances in place (the sampling solvers draw from
+    it)."""
     if cfg.solver == "mppi":
         res = mppi_mod.plan(m, cfg.mppi, cost_fn, phys, carry.mean, cmd,
                             carry.prev_ctrl, carry.generator)
         mean, sigma = res.mean, carry.sigma
+        info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
     elif cfg.solver == "cem":
         res = cem_mod.plan(m, cfg.cem, cost_fn, phys, carry.mean, cmd,
                            carry.prev_ctrl, carry.generator,
                            sigma=carry.sigma)
         mean, sigma = res.mean, res.sigma
+        info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
+    elif cfg.solver in ("sqp", "ilqr"):
+        # receding-horizon gradient MPC: the shifted incumbent is the warm
+        # start, refined by the config's few iterations per period
+        mod = sqp_mod if cfg.solver == "sqp" else ilqr_mod
+        res = mod.solve(m, getattr(cfg, cfg.solver), cost_fn, phys,
+                        carry.mean, cmd, carry.prev_ctrl)
+        mean, sigma = res.ctrl_seq, carry.sigma
+        info = {"best_cost": res.cost, "mean_cost": res.initial_cost}
     else:
         raise ValueError(cfg.solver)
-    info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
     ctrl = mean[0]
     # receding-horizon shift: roll the plan left, repeat the last step
     mean = torch.cat([mean[1:], mean[-1:]], dim=0)
@@ -198,7 +211,7 @@ def delayed_closed_loop(
     (controller-side work): "lane" the batch-minor leg engine, "aos" the
     oracle engine with the rollout config's budgets, "auto" picks lane
     when the model is leg-compatible and the planner itself scores
-    through a lane engine.
+    through a lane engine (the gradient solvers never do).
 
     ``plant_engine`` selects the engine simulating the plant: "aos" (the
     default, mj_step-parity semantics) or "lane", which routes the plant
@@ -207,19 +220,26 @@ def delayed_closed_loop(
 
     pm_plant = plant_model if plant_model is not None else m
     rcfg = cfg.rollout
-    solver_cfg = {"mppi": cfg.mppi, "cem": cfg.cem}[cfg.solver]
+    sampling_cfg = {"mppi": cfg.mppi, "cem": cfg.cem}.get(cfg.solver)
     if predictor == "auto":
-        predictor = ("lane" if solver_cfg.lane and leg_engine.is_compatible(m)
+        lane_planner = sampling_cfg is not None and sampling_cfg.lane
+        predictor = ("lane" if lane_planner and leg_engine.is_compatible(m)
                      else "aos")
     if predictor == "lane":
         # Newton/line-search budget of the one-step prediction: the
-        # sampling solver's own lane budget
+        # sampling solver's own lane budget; the gradient solvers carry
+        # none and get their rollout config's
+        if sampling_cfg is not None:
+            newton = sampling_cfg.lane_newton_iterations
+            lsit = sampling_cfg.lane_ls_iterations
+        else:
+            newton = rcfg.solver_iterations
+            lsit = 2 * rcfg.solver_iterations
 
         def predict(phys, pending):
             return lane_control_step(
                 m, phys, pending, cfg.plant_frame_skip,
-                solver_iterations=solver_cfg.lane_newton_iterations,
-                ls_iterations=solver_cfg.lane_ls_iterations,
+                solver_iterations=newton, ls_iterations=lsit,
             )
     elif predictor == "aos":
 

@@ -1,11 +1,15 @@
-"""Sampling MPC solvers: MPPI and CEM over batched rollouts.
+"""Trajectory-optimization solvers: sampling MPC (MPPI, CEM) and the
+gradient solvers (iLQR, SQP).
 
-Counterpart of ``quadruped_gym_tpu/solvers``; the gradient solvers
-(iLQR, SQP) are not ported yet (ROADMAP.md A.13). The receding-horizon
-runtime is ``runtime.mpc_runtime``.
+Counterpart of ``quadruped_gym_tpu/solvers``. The sampling solvers score
+batches of rollouts; iLQR and SQP linearize the contact dynamics by
+forward-mode AD (or batched central differences) on the oracle engine.
+The receding-horizon runtime is ``runtime.mpc_runtime``.
 """
 
-from . import cem, mppi, rollout  # noqa: F401
+from . import cem, ilqr, mppi, rollout, sqp  # noqa: F401
 from .cem import CEMConfig  # noqa: F401
+from .ilqr import ILQRConfig, ILQRResult  # noqa: F401
 from .mppi import MPPIConfig, PlanResult  # noqa: F401
+from .sqp import SQPConfig, SQPResult  # noqa: F401
 from .rollout import RolloutConfig, make_cost_fn  # noqa: F401

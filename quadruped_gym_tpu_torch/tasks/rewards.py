@@ -140,14 +140,15 @@ _UNIT_GRAD_EPS = 1e-6
 
 class _Unit(torch.autograd.Function):
     """x / |x| over the first axis. The forward is the where-guarded form
-    (0 at x == 0); the backward is the true projection Jacobian
+    (0 at x == 0); the derivative is the true projection Jacobian
     (I - u u^T) / |x| for |x| > _UNIT_GRAD_EPS and zero below, so cost
     quadratization near x == 0 gets 0 instead of ~1e30 entries. The
-    Jacobian is symmetric, so the same product serves JVP and VJP."""
+    Jacobian is symmetric, so the same product serves JVP and VJP, and it
+    is written in torch ops, so it differentiates again (the gradient
+    solvers take Hessians through it with ``torch.func``)."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         n2 = _dot0(x, x)
         nonzero = n2 > 0.0
         n = torch.where(nonzero, torch.sqrt(torch.where(nonzero, n2, 1.0)),
@@ -155,14 +156,29 @@ class _Unit(torch.autograd.Function):
         return x / torch.clamp_min(n, 1e-30)
 
     @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
+    def setup_context(ctx, inputs, output):
+        (x,) = inputs
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
+
+    @staticmethod
+    def _jacobian_product(x, g):
         n2 = _dot0(x, x)
         big = n2 > _UNIT_GRAD_EPS * _UNIT_GRAD_EPS
         n = torch.sqrt(torch.where(big, n2, 1.0))
         u = x / n
         jg = (g - u * _dot0(u, g)) / n
         return torch.where(big, jg, torch.zeros_like(jg))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _Unit._jacobian_product(x, g)
+
+    @staticmethod
+    def jvp(ctx, dx):
+        (x,) = ctx.saved_tensors
+        return _Unit._jacobian_product(x, dx)
 
 
 def unit(x: torch.Tensor) -> torch.Tensor:

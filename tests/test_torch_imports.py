@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``
-nor ``chip_smoke.py`` imports jax, optax, mujoco or the JAX package. The check
+"""The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``,
+no ``examples/torch_*.py`` and not ``chip_smoke.py`` imports jax, optax,
+mujoco or the JAX package. The check
 reads the sources' import statements; it imports nothing. And each package
 of the port re-exports what its JAX counterpart's ``__init__`` does, for
 every name the port has (read from the JAX sources, imported from the
@@ -16,7 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(
     glob.glob(os.path.join(REPO, "quadruped_gym_tpu_torch", "**", "*.py"),
               recursive=True)
-) + [os.path.join(REPO, "chip_smoke.py")]
+) + sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py"))) + [
+    os.path.join(REPO, "chip_smoke.py")]
 FORBIDDEN = ("jax", "jaxlib", "optax", "mujoco", "quadruped_gym_tpu")
 
 
@@ -41,8 +43,11 @@ def test_sources_found():
     for mod in ("rl/__init__", "rl/networks", "rl/ppo", "rl/train",
                 "runtime/checkpoint", "utils/__init__", "utils/metrics",
                 "envs/gym_env", "envs/rendering", "rl/evaluate",
-                "utils/plot", "utils/server"):
+                "utils/plot", "utils/server", "solvers/ilqr", "solvers/sqp",
+                "runtime/config"):
         assert f"quadruped_gym_tpu_torch/{mod}.py" in names
+    for example in ("torch_gait_sqp", "torch_closed_loop_gradient"):
+        assert f"examples/{example}.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -59,8 +64,7 @@ NOT_PORTED = {
     "envs": set(),
     "ops": {"step", "control_step"},  # the lane engine's, A.10
     "rl": {"distributed"},  # A.14
-    "solvers": {"ilqr", "sqp", "ILQRConfig", "ILQRResult", "SQPConfig",
-                "SQPResult"},  # A.13
+    "solvers": set(),
     "utils": set(),
 }
 

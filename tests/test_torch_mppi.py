@@ -97,11 +97,16 @@ def test_plan_on_cpu_runs_the_fused_plain_version():
 
 
 def test_mpc_config_refuses_unported_solvers():
+    """Every solver of the JAX package is ported now: each name builds and
+    an unknown one is refused as the JAX package refuses it (``rollout``
+    raises ``KeyError``)."""
     assert trt.MPCConfig().solver == "mppi"
     assert trt.MPCConfig(solver="cem").rollout == tcem.CEMConfig().rollout
     for solver in ("sqp", "ilqr"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            trt.MPCConfig(solver=solver)
+        cfg = trt.MPCConfig(solver=solver)
+        assert cfg.rollout == getattr(cfg, solver).rollout
+    with pytest.raises(KeyError):
+        trt.MPCConfig(solver="nope").rollout
 
 
 def test_init_carry_matches_jax():
