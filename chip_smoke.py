@@ -25,7 +25,12 @@ Phases, each of which raises on failure (nothing is caught):
    The gradient solvers (plain PyTorch through ``torch.func``): the
    forward-mode and finite-difference linearizations of H=2 steps from a
    planning-model state in contact (1e-9), and one SQP iteration at H=4
-   (its controls and cost, 1e-8), card against CPU in float64.
+   (its controls and cost, 1e-8), card against CPU in float64. The lane
+   engine (plain PyTorch, no kernel): ``lane_engine.step`` at 4/8 on the
+   card against the CPU in float64 (256 lanes in contact, 256 in the
+   air, 1e-9) on ``mpc_plant`` and on ``full``; and against the leg
+   engine on the card, float64, through ``lane_batched_rollout_cost``
+   (``"lane"`` against ``"leg"``, ``mpc_plant``, H=2, 1e-8).
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -40,7 +45,20 @@ Phases, each of which raises on failure (nothing is caught):
 6. env: the batched walking env at the width PPO uses: 2,048 envs on the
    fast-plant model, partial observation over 10 frames, ``reset`` and 50
    ``batched_autoreset_step(engine_impl="pallas")`` under random actions.
-7. loop: the closed loop at the width of the JAX package's
+7. lane: the lane engine, the engine of every model that is not
+   leg-compatible. (a) The JAX package's own unfused configuration
+   (``scripts/latency_report.py``): ``lane_batched_rollout_cost(
+   engine_impl="lane")`` on the planning model, S=4,096, H=50,
+   frame_skip 5, 2/4, float32, one warm solve timed (synchronised), then
+   the fused kernel on the same inputs (the costs' relative difference
+   is printed, not gated). (b) ``VectorWalkingEnv(full,
+   lane_physics=True)`` at the trainer's width: 2,048 envs, frame_skip
+   10, 4 Newton passes, PO window 10, random commands, float32, through
+   ``batched_autoreset_step(engine_impl="pallas")``, which must warn and
+   fall back to the lane engine; reset, one step, 3 timed steps; obs,
+   rewards and qpos finite. (c) One lane substep on ``full`` at 2,048
+   envs traced (``torch.profiler``): kernels, device time, idle share.
+8. loop: the closed loop at the width of the JAX package's
    ``examples/closed_loop_walk.py``: MPPI (1,024 samples, H=20, 2
    iterations, fused kernel) on the planning model driving the oracle
    engine on the ``mpc_plant`` model (feet, shins and ankle servos with
@@ -52,7 +70,7 @@ Phases, each of which raises on failure (nothing is caught):
    periods, timed with a synchronise after each part, and one traced
    call of each (``torch.profiler``): the kernels the card ran and its
    idle share.
-8. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
+9. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
    ``mpc_plant`` model on the oracle engine at frame_skip 10, 12
    contacts, 4 Newton passes, partial observation over 10 frames,
    hidden (256, 256, 128), 4 epochs x 8 minibatches, float32) through
@@ -70,7 +88,7 @@ Phases, each of which raises on failure (nothing is caught):
    observations: card float32 against CPU float64. Neither kernel runs
    on this path (as in the JAX package: the trainer's physics is the
    oracle engine or the eager leg engine).
-9. eval: the trainer's per-iteration eval. The committed policy through
+10. eval: the trainer's per-iteration eval. The committed policy through
    ``rl.evaluate.eval_rollout`` on the card in float32
    (``POWalkingQuadrupedEnv`` on ``full``, obs window 10, frame_skip 10,
    24 contacts, the model's Newton budget), its 20 s episode cut to the
@@ -82,7 +100,7 @@ Phases, each of which raises on failure (nothing is caught):
    cut to one update of 2 env steps and a 0.2 s eval episode, its
    ``logs/eval_metrics.jsonl`` row, plots and video checked. Neither
    kernel runs on this path (the gym env steps the oracle engine).
-10. grad: the gradient solvers through their entry points, float32:
+11. grad: the gradient solvers through their entry points, float32:
    ``examples/torch_gait_sqp.py``'s ``main`` at its defaults (fast plant,
    H=50, frame_skip 5, 12 contacts, 4 Newton passes, the stance settled
    for 400 steps, the sine warm start) with SQP (1 of 10 iterations; it
@@ -94,13 +112,13 @@ Phases, each of which raises on failure (nothing is caught):
    step of ``delayed_closed_loop`` with SQP; one gait SQP iteration
    traced in parts around the settled stance (``torch.profiler``:
    kernels, device time, idle share). Neither kernel runs on this path.
-11. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+12. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 10 each set the launch counters to 0 just before driving
+Phases 4 to 11 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -122,8 +140,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "check", "main", "plan", "env", "loop", "train",
-          "eval", "grad", "time")
+PHASES = ("device", "build", "check", "main", "plan", "env", "lane", "loop",
+          "train", "eval", "grad", "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -198,6 +216,18 @@ GAIT_ITERS = {"sqp": 1, "ilqr": 1}
 GAIT_FD_ITERS = 1
 GRAD_LOOP_STEPS = 1
 GRAD_DELAYED_STEPS = 1
+# the lane engine on the card against the CPU, float64, one step at 4/8,
+# and against the leg engine through the rollout dispatch (same math,
+# another grouping of the sums)
+LANE_F64_TOL = 1e-9
+LANE_LEG_TOL = 1e-8
+LANE_CHECK_B = 256
+# the lane phase: (a) the JAX package's unfused-engine configuration
+# (scripts/latency_report.py), (b) the trainer's env width on ``full``
+LANE_S, LANE_H, LANE_BUDGET = 4096, 50, (2, 4)
+LANE_ENV_FRAME_SKIP = 10
+LANE_ENV_STEPS = 3
+LANE_ENV_BUDGET = (4, 8)
 EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
              "final_tracking_error", "mean_uprightness", "command_speed",
              "iteration"}
@@ -362,14 +392,17 @@ def check_case(rec, label, model, kind, S, H, fs, budget, dtype, tol,
 
 def lane_inputs(m, kind, B, rng, dtype, device):
     """A batch-minor ``LaneState`` of B lanes near ``qpos0``, each lane
-    perturbed on its own and moving, grounded or 0.5 m up, and (12, B)
-    controls."""
+    perturbed on its own and moving, grounded, 0.5 m up, or pressed to
+    3 cm ("contact": the feet, shins and, on ``full``, the base and hips
+    touch), and (12, B) controls."""
     from quadruped_gym_tpu_torch.ops.lane_engine import LaneState
 
     qpos = (np.asarray(m.qpos0, np.float64)[:, None]
             + 0.02 * rng.standard_normal((m.nq, B)))
     if kind == "airborne":
         qpos[2] += 0.5
+    elif kind == "contact":
+        qpos[2] = 0.03
     qvel = 0.1 * rng.standard_normal((m.nv, B))
     act = np.tile(np.array([0.0, 0.0, -0.5] * 4)[:, None], (1, B))
     ctrl = np.clip(act + 0.3 * rng.standard_normal((m.nu, B)), -1.0, 1.0)
@@ -507,6 +540,7 @@ def phase_check(rec):
     check_refused_launch(rec)
     check_oracle(rec)
     check_gradient(rec)
+    check_lane(rec)
 
 
 def oracle_states(m, dtype, device, **kw):
@@ -716,6 +750,78 @@ def check_gradient(rec):
         f"{errs['sqp_cost']:.2e} (tol {GRAD_SQP_TOL:g} relative to 1 + "
         "max|x|)")
     rec["gradient_check"] = errs
+
+
+def check_lane(rec):
+    """The lane engine is plain PyTorch: on the card in float64 it must
+    compute what the CPU computes, on the leg engine's model and on
+    ``full``, in contact (active slots) and in the air (none); and on the
+    card it must agree with the leg engine, the same math, through the
+    rollout dispatch."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine, lane_engine
+    from quadruped_gym_tpu_torch.physics.engine import State
+    from quadruped_gym_tpu_torch.solvers import rollout
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    errs = rec.setdefault("lane_check", {})
+    for seed, (name, kind) in enumerate(
+            (n, k) for n in ("mpc_plant", "full")
+            for k in ("contact", "airborne")):
+        m = spec.get_snapshot(name)
+        ls, ctrl = lane_inputs(m, kind, LANE_CHECK_B,
+                               np.random.default_rng(30 + seed), f64, "cpu")
+        slots = lane_engine._collide(m, lane_engine._fk(m, ls.qpos))
+        n_active = int(slots.active.sum())
+        if (n_active > 0) != (kind == "contact"):
+            raise AssertionError(f"lane {name} {kind}: {n_active} active "
+                                 "slots")
+        want = lane_engine.step(m, ls, ctrl, *LANE_ENV_BUDGET)
+        got = lane_engine.step(m, type(ls)(*(x.to(dev) for x in ls)),
+                               ctrl.to(dev), *LANE_ENV_BUDGET)
+        for f in got._fields:
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            if g.dtype != f64 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"lane {name} {kind}: {f} not finite "
+                                     "float64")
+            err = (g - w).abs()
+            if bool((err > LANE_F64_TOL + LANE_F64_TOL * w.abs()).any()):
+                raise AssertionError(
+                    f"lane {name} {kind}: {f} on the card differs from the "
+                    f"CPU by {float(err.max()):.3e}")
+            errs[f"{name} {kind} {f}"] = float(err.max())
+        log(f"check lane_engine.step f64 {name} {kind} at "
+            f"{LANE_ENV_BUDGET[0]}/{LANE_ENV_BUDGET[1]}, B={LANE_CHECK_B} "
+            f"({n_active} active slots): card vs CPU max_abs_err "
+            + " ".join(f"{f} {errs[f'{name} {kind} {f}']:.2e}"
+                       for f in got._fields)
+            + f" (rtol=atol={LANE_F64_TOL:g})")
+
+    # lane against leg on the card, through the dispatch
+    m = spec.get_mpc_plant_model()
+    ls, _ = lane_inputs(m, "contact", 1, np.random.default_rng(40), f64, dev)
+    state = State(*(x[..., 0] for x in ls))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    seqs = random_seqs(gen, 1024, 2, f64, dev, 0.3)
+    cmd, prev = command(f64, dev, 0.2, 0.1, 0.3), prev_ctrl(f64, dev)
+    cfg = rollout.RolloutConfig(horizon=2, frame_skip=FRAME_SKIP)
+    before = dict(cuda_engine.launch_counts)
+    costs = {impl: rollout.lane_batched_rollout_cost(
+        m, cfg, rollout.make_cost_fn(m), state, seqs, cmd, prev,
+        *LANE_ENV_BUDGET, engine_impl=impl) for impl in ("lane", "leg")}
+    if cuda_engine.launch_counts != before:
+        raise AssertionError("the lane and leg engines launched a kernel")
+    err = (costs["lane"] - costs["leg"]).abs()
+    rel = float((err / costs["leg"].abs().clamp_min(1e-30)).max())
+    errs["lane vs leg costs"] = float(err.max())
+    log(f"check lane vs leg engine f64 on the card, mpc_plant in contact, "
+        f"lane_batched_rollout_cost S=1024 H=2 frame_skip {FRAME_SKIP} "
+        f"{LANE_ENV_BUDGET[0]}/{LANE_ENV_BUDGET[1]}: max_abs_err "
+        f"{float(err.max()):.3e} max_rel_err {rel:.3e} (rtol=atol="
+        f"{LANE_LEG_TOL:g})")
+    if bool((err > LANE_LEG_TOL + LANE_LEG_TOL * costs["leg"].abs()).any()):
+        raise AssertionError("lane and leg engines disagree on the card")
 
 
 def check_refused_launch(rec):
@@ -1022,6 +1128,163 @@ def phase_env(rec, steps=50, warm=10):
         f"{rec['env_step_ms']:.3f} ms per step over the last "
         f"{steps - warm} steps (host clock, one synchronise at the end); "
         f"card: {rec['card']}")
+
+
+def phase_lane(rec):
+    import warnings
+
+    from quadruped_gym_tpu_torch.envs.vector_env import (
+        VectorWalkingEnv, batched_autoreset_step)
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine, lane_engine
+    from quadruped_gym_tpu_torch.physics.engine import make_state
+    from quadruped_gym_tpu_torch.solvers import rollout
+    from quadruped_gym_tpu_torch.tasks import walking
+
+    dev, dt = torch.device("cuda"), torch.float32
+    out = rec["lane"] = {}
+
+    def launches():
+        return (cuda_engine.launch_counts[ROLLOUT],
+                cuda_engine.launch_counts[SUBSTEP])
+
+    # (a) the JAX package's unfused configuration, then B1 on its inputs
+    m = spec.get_planning_model()
+    it, lsi = LANE_BUDGET
+    rng = np.random.default_rng(50)
+    state = make_state(m, dtype=dt, device=dev)
+    state = state._replace(qvel=torch.as_tensor(
+        0.1 * rng.standard_normal(m.nv), dtype=dt, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(51)
+    seqs = random_seqs(gen, LANE_S, LANE_H, dt, dev, 0.2)
+    cmd, prev = command(dt, dev), prev_ctrl(dt, dev)
+    cfg = rollout.RolloutConfig(horizon=LANE_H, frame_skip=FRAME_SKIP)
+    cost_fn = rollout.make_cost_fn(m)
+
+    def score(impl, s=seqs):
+        return rollout.lane_batched_rollout_cost(
+            m, cfg, cost_fn, state, s, cmd, prev, it, lsi, engine_impl=impl)
+
+    cuda_engine.reset_launch_counts()
+    score("lane", seqs[:, :1].contiguous())  # constants and allocator warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lane_costs = score("lane")
+    torch.cuda.synchronize()
+    lane_s = time.perf_counter() - t0
+    if launches() != (0, 0):
+        raise AssertionError(f"lane (a): {launches()} kernel launches from "
+                             "the lane engine (want none)")
+    cuda_engine.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_costs = score("fused")
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    if launches() != (1, 0):
+        raise AssertionError(f"lane (a): B1/B2 launched {launches()} times "
+                             "(want 1, 0)")
+    counts = rec.setdefault("launches", {})
+    counts[ROLLOUT] = counts.get(ROLLOUT, 0) + 1
+    for tag, c in (("lane", lane_costs), ("fused", fused_costs)):
+        if c.shape != (LANE_S,) or not bool(torch.isfinite(c).all()):
+            raise AssertionError(f"lane (a): {tag} costs not finite (S,)")
+    rel = ((lane_costs - fused_costs).abs()
+           / fused_costs.abs().clamp_min(1e-30)).double()
+    out["rollout"] = {
+        "lane_s": lane_s, "lane_rollouts_per_s": LANE_S / lane_s,
+        "fused_s": fused_s, "fused_rollouts_per_s": LANE_S / fused_s,
+        "rel_diff_median": float(rel.median()),
+        "rel_diff_max": float(rel.max())}
+    log(f"lane (a) lane_batched_rollout_cost planning S={LANE_S} H={LANE_H} "
+        f"frame_skip {FRAME_SKIP} {it}/{lsi} float32 (scripts/"
+        f"latency_report.py's unfused configuration): engine_impl='lane' "
+        f"{lane_s:.3f} s = {LANE_S / lane_s:.1f} rollouts/s (one warm "
+        f"solve, host clock, synchronised); 'fused' (B1, 1 launch) "
+        f"{fused_s:.4f} s = {LANE_S / fused_s:.1f} rollouts/s; costs' "
+        f"relative difference median {float(rel.median()):.3e}, max "
+        f"{float(rel.max()):.3e} (not gated); card: {rec['card']}")
+
+    # (b) VectorWalkingEnv(full, lane_physics=True) at the trainer's width
+    m = spec.get_full_model()
+    ecfg = walking.WalkingConfig(
+        frame_skip=LANE_ENV_FRAME_SKIP, partial_obs=True, obs_window=10,
+        random_controls=True, random_init=True,
+        solver_iterations=LANE_ENV_BUDGET[0], dtype=dt)
+    env = VectorWalkingEnv(m, ecfg, N_ENVS, lane_physics=True, seed=52)
+    agen = torch.Generator(device=dev)
+    agen.manual_seed(53)
+    cuda_engine.reset_launch_counts()
+    st, obs = env.reset()
+    times, bad = [], torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(LANE_ENV_STEPS + 1):
+        action = walking.clip_ctrl(m, 0.5 * torch.randn(
+            (N_ENVS, m.nu), generator=agen, dtype=dt, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = batched_autoreset_step(m, ecfg, st, action, env.generator,
+                                         engine_impl="pallas")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not any("falling back to the slower lane engine" in str(w.message)
+                   for w in caught):
+            raise AssertionError("lane (b): engine_impl='pallas' on full did "
+                                 "not warn of the fallback")
+        for x in (res.obs, res.reward, res.state.phys.qpos):
+            bad = bad + (~torch.isfinite(x)).sum()
+        st = res.state
+    if launches() != (0, 0):
+        raise AssertionError(f"lane (b): kernel launches {launches()} (the "
+                             "fallback runs none)")
+    if int(bad) or res.obs.shape != (N_ENVS, env.obs_size):
+        raise AssertionError(f"lane (b): {int(bad)} non-finite values or "
+                             f"obs {tuple(res.obs.shape)}")
+    step_s = float(np.median(times[1:]))
+    out["env"] = {"step_s": times, "median_step_s": step_s,
+                  "substep_ms": 1e3 * step_s / LANE_ENV_FRAME_SKIP,
+                  "env_steps_per_s": N_ENVS / step_s}
+    log(f"lane (b) VectorWalkingEnv(full, lane_physics=True) {N_ENVS} envs, "
+        f"frame_skip {LANE_ENV_FRAME_SKIP}, {LANE_ENV_BUDGET[0]} Newton "
+        f"passes, PO window 10, float32, engine_impl='pallas' warned and "
+        f"fell back: {step_s:.4f} s per env step (median of "
+        f"{LANE_ENV_STEPS} after 1, host clock, synchronised; each "
+        + ", ".join(f"{x:.4f}" for x in times) + f" s) = "
+        f"{1e3 * step_s / LANE_ENV_FRAME_SKIP:.2f} ms per substep, "
+        f"{N_ENVS / step_s:.1f} env-steps/s; mean reward "
+        f"{float(res.reward.mean()):.3f}, mean base z "
+        f"{float(st.phys.qpos[:, 2].mean()):.4f}; card: {rec['card']}")
+
+    # (c) one lane substep on full at this width, traced
+    ls = lane_engine.from_batched(*st.phys)
+    ctrl = walking.clip_ctrl(m, torch.zeros((N_ENVS, m.nu), dtype=dt,
+                                            device=dev)).T.contiguous()
+    sub = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lane_engine.step(m, ls, ctrl, *LANE_ENV_BUDGET)
+        torch.cuda.synchronize()
+        sub.append(time.perf_counter() - t0)
+    sub_s = float(np.median(sub))
+    t0 = time.perf_counter()
+    dev_s, n_dev, _ = traced(lambda: lane_engine.step(
+        m, ls, ctrl, *LANE_ENV_BUDGET))
+    trace_s = time.perf_counter() - t0
+    if n_dev == 0:
+        raise AssertionError("lane (c): the profiler saw no device activity")
+    out["trace"] = {"substep_s": sub, "device_s": dev_s,
+                    "device_activities": n_dev,
+                    "idle_share": 1.0 - dev_s / sub_s}
+    log(f"lane (c) one lane_engine.step on full, {N_ENVS} lanes, "
+        f"{LANE_ENV_BUDGET[0]}/{LANE_ENV_BUDGET[1]}, float32: "
+        f"{1e3 * sub_s:.2f} ms (median of 3, host clock, synchronised); "
+        f"traced (torch.profiler): {n_dev} kernels and copies, "
+        f"{1e3 * dev_s:.3f} ms on the card = {1e6 * dev_s / n_dev:.2f} us "
+        f"each, the card idle {100 * out['trace']['idle_share']:.1f} % of "
+        f"the substep (the trace took {trace_s:.1f} s); card: {rec['card']}")
 
 
 def walk_config():

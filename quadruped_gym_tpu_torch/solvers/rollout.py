@@ -8,6 +8,7 @@ the component axis comes first.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -155,21 +156,30 @@ def lane_batched_rollout_cost(
     launch of the substep kernel (``ops.cuda_engine.control_step``) per
     control step, then ``cost_fn`` on the sensors it wrote, so any stage
     cost works. ``"leg"`` loops the eager leg engine with ``cost_fn``.
-    ``"lane"`` is not ported yet."""
-    from ..ops import cuda_engine, leg_engine
+    ``"lane"`` loops the eager lane engine, which serves every model: the
+    other three need the feet-only collision model
+    (``leg_engine.is_compatible``) and fall back to it, with a warning,
+    on any other. ``dp`` needs one of those three."""
+    from ..ops import cuda_engine, lane_engine, leg_engine
 
     if engine_impl not in ("lane", "leg", "pallas", "fused"):
         raise ValueError(
             f"unknown engine_impl {engine_impl!r}; "
             "valid: 'lane', 'leg', 'pallas', 'fused'"
         )
-    if engine_impl == "lane":
-        raise NotImplementedError(
-            "engine_impl='lane' is not ported yet (ROADMAP.md A.10)")
-    if not leg_engine.is_compatible(m):
-        raise NotImplementedError(
-            "the model is not leg-compatible; its engine (the lane engine) "
-            "is not ported yet (ROADMAP.md A.10)")
+    if engine_impl != "lane" and not leg_engine.is_compatible(m):
+        warnings.warn(
+            f"engine_impl={engine_impl!r} needs the feet-only "
+            "collision model (leg_engine.is_compatible); falling "
+            "back to the slower lane engine",
+            stacklevel=2,
+        )
+        engine_impl = "lane"
+    if dp is not None and engine_impl == "lane":
+        raise ValueError(
+            "DomainParams require the leg/pallas/fused engines "
+            "(feet-only collision model)"
+        )
     if engine_impl == "fused":
         if not getattr(cost_fn, "_is_walking_stage_cost", False):
             raise ValueError(
@@ -184,27 +194,27 @@ def lane_batched_rollout_cost(
             ls_iterations=ls_iterations, dp=dp,
         )
 
-    from ..ops.lane_engine import LaneState
-
     S, H, nu = ctrl_seqs.shape
     dt = ctrl_seqs.dtype
 
     def lanes(x):
         return x.to(dt)[:, None].expand(x.shape[0], S)
 
-    ls = LaneState(qpos=lanes(state0.qpos), qvel=lanes(state0.qvel),
-                   act=lanes(state0.act),
-                   time=state0.time.to(dt).expand(S),
-                   sensordata=lanes(state0.sensordata))
+    ls = lane_engine.LaneState(
+        qpos=lanes(state0.qpos), qvel=lanes(state0.qvel),
+        act=lanes(state0.act), time=state0.time.to(dt).expand(S),
+        sensordata=lanes(state0.sensordata))
     seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
     prev = lanes(prev_ctrl0)
     total = torch.zeros(S, dtype=dt, device=ctrl_seqs.device)
-    eng = cuda_engine if engine_impl == "pallas" else leg_engine
+    eng = {"pallas": cuda_engine, "leg": leg_engine,
+           "lane": lane_engine}[engine_impl]
+    kw = {} if dp is None else {"dp": dp}
     for t in range(H):
         ls = eng.control_step(
             m, ls, seqs[t], cfg.frame_skip,
             solver_iterations=newton_iterations,
-            ls_iterations=ls_iterations, dp=dp,
+            ls_iterations=ls_iterations, **kw,
         )
         total = total + cost_fn(ls.sensordata, seqs[t], prev, cmd)
         prev = seqs[t]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -273,8 +274,9 @@ def batched_step(
     package's name for the substep kernel
     (``ops.cuda_engine.control_step``, one launch per call);
     ``"leg"``, and ``"auto"`` for a leg-compatible model, is the eager leg
-    engine. Models that are not leg-compatible need the lane engine,
-    which is not ported yet. The Newton budget is a fixed iteration
+    engine; ``"lane"``, and ``"auto"`` for any other model, the eager lane
+    engine. ``"pallas"`` on a model that is not leg-compatible warns and
+    falls back to the lane engine. The Newton budget is a fixed iteration
     count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
     (or 4 when that is None)."""
     from ..ops import cuda_engine, lane_engine, leg_engine
@@ -282,13 +284,22 @@ def batched_step(
     if engine_impl not in ("auto", "leg", "pallas", "lane"):
         raise ValueError(f"unknown engine_impl {engine_impl!r}; "
                          "valid: 'auto', 'leg', 'pallas', 'lane'")
-    if engine_impl == "lane" or not leg_engine.is_compatible(m):
-        raise NotImplementedError(
-            "the lane engine (engine_impl='lane', and every model that is "
-            "not leg-compatible) is not ported yet (ROADMAP.md A.10)")
     if newton_iterations is None:
         newton_iterations = cfg.solver_iterations or 4
-    eng = cuda_engine if engine_impl == "pallas" else leg_engine
+    if engine_impl == "pallas" and leg_engine.is_compatible(m):
+        eng = cuda_engine
+    elif engine_impl == "leg" or (
+            engine_impl == "auto" and leg_engine.is_compatible(m)):
+        eng = leg_engine
+    else:
+        if engine_impl == "pallas":
+            warnings.warn(
+                "engine_impl='pallas' needs the feet-only collision model "
+                "(leg_engine.is_compatible); falling back to the slower "
+                "lane engine",
+                stacklevel=2,
+            )
+        eng = lane_engine
 
     def physics(phys, ctrl):
         ls = lane_engine.from_batched(*phys)

@@ -62,7 +62,7 @@ def test_no_jax_imports(path):
 # with the ROADMAP.md item that brings it
 NOT_PORTED = {
     "envs": set(),
-    "ops": {"step", "control_step"},  # the lane engine's, A.10
+    "ops": set(),
     "rl": {"distributed"},  # A.14
     "solvers": set(),
     "utils": set(),

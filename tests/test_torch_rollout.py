@@ -191,9 +191,10 @@ def test_dispatch_refuses_what_is_not_ported():
     cfg = trollout.RolloutConfig(horizon=1, frame_skip=1)
     st, seqs, cmd, prev = _dispatch_args(m)
     cost = trollout.make_cost_fn(m)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trollout.lane_batched_rollout_cost(m, cfg, cost, st, seqs, cmd, prev,
-                                           engine_impl="lane")
+    with pytest.raises(ValueError, match="DomainParams require"):
+        trollout.lane_batched_rollout_cost(
+            m, cfg, cost, st, seqs, cmd, prev, engine_impl="lane",
+            dp=convert.domain_params(_dp(0), device="cpu"))
     with pytest.raises(ValueError, match="unknown engine_impl"):
         trollout.lane_batched_rollout_cost(m, cfg, cost, st, seqs, cmd, prev,
                                            engine_impl="xla")
@@ -201,3 +202,38 @@ def test_dispatch_refuses_what_is_not_ported():
         trollout.lane_batched_rollout_cost(
             m, cfg, trollout.make_cost_fn(m, 0.02), st, seqs, cmd, prev,
             engine_impl="fused")
+
+
+def test_dispatch_lane_equals_leg():
+    """``"lane"`` runs the lane engine: on a leg-compatible model the leg
+    engine's math without the leg folding."""
+    m = tspec.get_planning_model()
+    cfg = trollout.RolloutConfig(horizon=2, frame_skip=2)
+    st, seqs, cmd, prev = _dispatch_args(m, H=2)
+    st = st._replace(qvel=torch.as_tensor(
+        0.1 * np.random.default_rng(1).standard_normal(m.nv)))
+    seqs = seqs + 0.1 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal(seqs.shape))
+    kw = dict(newton_iterations=2, ls_iterations=4)
+    lane, leg = (trollout.lane_batched_rollout_cost(
+        m, cfg, trollout.make_cost_fn(m), st, seqs, cmd, prev,
+        engine_impl=impl, **kw) for impl in ("lane", "leg"))
+    torch.testing.assert_close(lane, leg, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("impl", ["leg", "pallas", "fused"])
+def test_dispatch_falls_back_to_lane(impl):
+    """A model that is not leg-compatible (``full``: its base and hips
+    collide) warns and runs on the lane engine."""
+    m = tspec.get_full_model()
+    cfg = trollout.RolloutConfig(horizon=1, frame_skip=1)
+    st, seqs, cmd, prev = _dispatch_args(m)
+    cost = trollout.make_cost_fn(m)
+    kw = dict(newton_iterations=2, ls_iterations=4)
+    with pytest.warns(UserWarning, match="falling back to the slower lane"):
+        got = trollout.lane_batched_rollout_cost(
+            m, cfg, cost, st, seqs, cmd, prev, engine_impl=impl, **kw)
+    want = trollout.lane_batched_rollout_cost(
+        m, cfg, cost, st, seqs, cmd, prev, engine_impl="lane", **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)

@@ -187,8 +187,15 @@ def test_batched_step_engines_agree_and_refuse():
         torch.testing.assert_close(other.obs, outs[0].obs, rtol=0, atol=0)
         torch.testing.assert_close(other.reward, outs[0].reward, rtol=0,
                                    atol=0)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        twalk.batched_step(TM, tcfg, st, action, engine_impl="lane")
+    # the lane engine is the leg engine's math without the leg folding
+    lane = twalk.batched_step(TM, tcfg, st, action, engine_impl="lane")
+    torch.testing.assert_close(lane.obs, outs[0].obs, rtol=1e-7, atol=1e-9)
+    torch.testing.assert_close(lane.reward, outs[0].reward, rtol=1e-7,
+                               atol=1e-8)
+    for f in ("qpos", "qvel", "act", "time", "sensordata"):
+        torch.testing.assert_close(getattr(lane.state.phys, f),
+                                   getattr(outs[0].state.phys, f),
+                                   rtol=1e-8, atol=1e-10, msg=f)
     with pytest.raises(ValueError, match="unknown engine_impl"):
         twalk.batched_step(TM, tcfg, st, action, engine_impl="xla")
 
