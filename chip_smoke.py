@@ -30,7 +30,8 @@ Phases, each of which raises on failure (nothing is caught):
    card against the CPU in float64 (256 lanes in contact, 256 in the
    air, 1e-9) on ``mpc_plant`` and on ``full``; and against the leg
    engine on the card, float64, through ``lane_batched_rollout_cost``
-   (``"lane"`` against ``"leg"``, ``mpc_plant``, H=2, 1e-8).
+   (``"lane"`` against ``"leg"``, ``mpc_plant``, H=2, 1e-8). B1 at the
+   parallel phase's batch width (S=4,096, H=50, 2/4, 2 m up) too.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -58,7 +59,25 @@ Phases, each of which raises on failure (nothing is caught):
    fall back to the lane engine; reset, one step, 3 timed steps; obs,
    rewards and qpos finite. (c) One lane substep on ``full`` at 2,048
    envs traced (``torch.profiler``): kernels, device time, idle share.
-8. loop: the closed loop at the width of the JAX package's
+8. parallel: the parallel paths at one rank, a group of this process
+   alone over NCCL (started here and destroyed at the end), each held to
+   its unsharded counterpart: (a) ``sharded_mppi_plan`` at the main
+   phase's width (planning, 65,536 samples, H=50, fused, 2/4), 3 solves
+   timed, against ``mppi.plan`` with ``fold_in(generator, 0)`` (mean
+   within 1e-6, best cost equal); (b) ``sharded_batch_mppi_plan`` on a
+   (1, 1) data x sample mesh, 16 scenarios (commands 0.1-0.3 m/s) x
+   4,096 samples, H=50, fused: 16 launches of B1, against 16
+   ``mppi.plan`` calls with the fold structure (1e-5); (c)
+   ``sharded_rollout_costs`` and ``pipelined_rollout_cost`` (1 stage, 2
+   microbatches) against ``batched_rollout_cost``, ``mpc_plant`` on the
+   oracle engine, 1,024 x H=4, float32; (d) ``sqp.condense`` on a
+   ``horizon`` mesh against the unsharded one at H=50 and the fast
+   plant's widths, float64 (1e-12), and ``sqp.solve(mesh=)`` at H=4
+   against the unsharded solve; (e) ``rl.train.main --distributed`` at
+   2,048 envs, one update of 2 env steps; (f) one
+   ``make_distributed_update`` against ``ppo.update_fn`` from the same
+   state and rank stream: equal parameters in every bit.
+9. loop: the closed loop at the width of the JAX package's
    ``examples/closed_loop_walk.py``: MPPI (1,024 samples, H=20, 2
    iterations, fused kernel) on the planning model driving the oracle
    engine on the ``mpc_plant`` model (feet, shins and ankle servos with
@@ -70,7 +89,7 @@ Phases, each of which raises on failure (nothing is caught):
    periods, timed with a synchronise after each part, and one traced
    call of each (``torch.profiler``): the kernels the card ran and its
    idle share.
-9. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
+10. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
    ``mpc_plant`` model on the oracle engine at frame_skip 10, 12
    contacts, 4 Newton passes, partial observation over 10 frames,
    hidden (256, 256, 128), 4 epochs x 8 minibatches, float32) through
@@ -88,7 +107,7 @@ Phases, each of which raises on failure (nothing is caught):
    observations: card float32 against CPU float64. Neither kernel runs
    on this path (as in the JAX package: the trainer's physics is the
    oracle engine or the eager leg engine).
-10. eval: the trainer's per-iteration eval. The committed policy through
+11. eval: the trainer's per-iteration eval. The committed policy through
    ``rl.evaluate.eval_rollout`` on the card in float32
    (``POWalkingQuadrupedEnv`` on ``full``, obs window 10, frame_skip 10,
    24 contacts, the model's Newton budget), its 20 s episode cut to the
@@ -100,7 +119,7 @@ Phases, each of which raises on failure (nothing is caught):
    cut to one update of 2 env steps and a 0.2 s eval episode, its
    ``logs/eval_metrics.jsonl`` row, plots and video checked. Neither
    kernel runs on this path (the gym env steps the oracle engine).
-11. grad: the gradient solvers through their entry points, float32:
+12. grad: the gradient solvers through their entry points, float32:
    ``examples/torch_gait_sqp.py``'s ``main`` at its defaults (fast plant,
    H=50, frame_skip 5, 12 contacts, 4 Newton passes, the stance settled
    for 400 steps, the sine warm start) with SQP (1 of 10 iterations; it
@@ -112,13 +131,13 @@ Phases, each of which raises on failure (nothing is caught):
    step of ``delayed_closed_loop`` with SQP; one gait SQP iteration
    traced in parts around the settled stance (``torch.profiler``:
    kernels, device time, idle share). Neither kernel runs on this path.
-12. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+13. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 11 each set the launch counters to 0 just before driving
+Phases 4 to 12 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -140,8 +159,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "check", "main", "plan", "env", "lane", "loop",
-          "train", "eval", "grad", "time")
+PHASES = ("device", "build", "check", "main", "plan", "env", "lane",
+          "parallel", "loop", "train", "eval", "grad", "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -228,6 +247,25 @@ LANE_S, LANE_H, LANE_BUDGET = 4096, 50, (2, 4)
 LANE_ENV_FRAME_SKIP = 10
 LANE_ENV_STEPS = 3
 LANE_ENV_BUDGET = (4, 8)
+# the parallel phase, at one rank over NCCL: (a) the main phase's solve
+# through sharded_mppi_plan, 3 solves; (b) BASELINE config 3's 4,096
+# rollouts a scenario over 16 scenarios on a (1, 1) data x sample mesh;
+# (c) oracle rollouts of mpc_plant, sharded and pipelined (1 stage, 2
+# microbatches); (d) the condensation at the gait's horizon, then an SQP
+# solve at H=4; (e) the trainer at its 2,048 envs, one update of 2 env
+# steps; (f) one distributed update against update_fn
+PAR_SOLVES = 3
+PAR_B, PAR_S = 16, 4096
+PAR_ROLLOUT_S, PAR_ROLLOUT_H, PAR_MICROBATCHES = 1024, 4, 2
+# (a): the softmax is an exp over a SUM all-reduce here, another rounding
+# of the weights (~1e-7 in float32), relative to the largest control (at
+# least 1); (b) the dryrun's atol
+PAR_MEAN_TOL = 1e-6
+PAR_BATCH_TOL = 1e-5
+PAR_CONDENSE_TOL = 1e-12
+PAR_TRAIN_ARGS = ["--distributed", "--num-steps", "2",
+                  "--timesteps-per-iteration", "4096", "--iterations", "1",
+                  "--no-eval"]
 EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
              "final_tracking_error", "mean_uprightness", "command_speed",
              "iteration"}
@@ -251,12 +289,15 @@ def card_line() -> str:
 
 def start_state(m, kind: str, rng, dtype, device):
     """A shared start state near ``qpos0`` (perturbed so the base moves
-    from the first substep), grounded or 0.5 m up."""
+    from the first substep), grounded, 0.5 m up, or 2 m up ("high": in
+    the air for a whole H=50 rollout, whose 0.5 s fall 1.23 m)."""
     from quadruped_gym_tpu_torch.physics.engine import State
 
     qpos = np.asarray(m.qpos0, np.float64) + 0.02 * rng.standard_normal(m.nq)
     if kind == "airborne":
         qpos[2] += 0.5
+    elif kind == "high":
+        qpos[2] += 2.0
     qvel = 0.1 * rng.standard_normal(m.nv)
     act = np.array([0.0, 0.0, -0.5] * 4)
 
@@ -512,6 +553,13 @@ def phase_check(rec):
                    walk.rollout.horizon, walk.rollout.frame_skip,
                    (walk.lane_newton_iterations, walk.lane_ls_iterations),
                    f32, F32_TOL, seed=9),
+        # the parallel phase's batch planner: S=4,096 a scenario, H=50,
+        # in the air throughout (from 0.5 m up the robot lands within the
+        # horizon, and float32 contact diverges chaotically between two
+        # bit-different programs: 3 of 4,096 rollouts by up to 0.19 %)
+        check_case(rec, "f32 planning high (parallel batch width)",
+                   "planning", "high", PAR_S, H_MAIN, FRAME_SKIP,
+                   BUDGET["planning"], f32, F32_TOL, seed=10),
     )
     # the substep kernel: float64 at B around 4,096 (one B that 128 does
     # not divide), then float32 at the widths of its two main paths
@@ -1285,6 +1333,332 @@ def phase_lane(rec):
         f"{1e3 * dev_s:.3f} ms on the card = {1e6 * dev_s / n_dev:.2f} us "
         f"each, the card idle {100 * out['trace']['idle_share']:.1f} % of "
         f"the substep (the trace took {trace_s:.1f} s); card: {rec['card']}")
+
+
+def _clone(gen):
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def phase_parallel(rec):
+    """The parallel paths (``parallel/``, ``rl/distributed.py``, SQP's
+    sharded condensation) at one rank over NCCL, each held to its
+    unsharded counterpart on the same inputs. The group is started here
+    (a world of one on an in-process store) and destroyed at the end,
+    unless the process had one before."""
+    import torch.distributed as dist
+
+    from quadruped_gym_tpu_torch import parallel
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.parallel.mesh import fold_in, group_scope
+
+    out = rec["parallel"] = {}
+    with group_scope():
+        mesh = parallel.make_mesh(device="cuda")
+        if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+            raise AssertionError(f"parallel: a group of "
+                                 f"{dist.get_world_size()} over "
+                                 f"{dist.get_backend()}, want 1 over nccl")
+        log(f"parallel: a world of {dist.get_world_size()} over "
+            f"{dist.get_backend()} (NCCL {torch.cuda.nccl.version()}); "
+            f"card: {rec['card']}")
+        launches = parallel_mpc(rec, out, mesh, fold_in)
+        counts = rec.setdefault("launches", {})
+        counts[ROLLOUT] = counts.get(ROLLOUT, 0) + launches
+        # (c)-(f) step the oracle engine: no kernel
+        cuda_engine.reset_launch_counts()
+        parallel_rollouts(rec, out, mesh)
+        parallel_sqp(rec, out)
+        parallel_ppo(rec, out, fold_in)
+        if cuda_engine.launch_counts != {ROLLOUT: 0, SUBSTEP: 0}:
+            raise AssertionError(f"parallel (c)-(f): kernel launches "
+                                 f"{cuda_engine.launch_counts} (want none)")
+    if dist.is_initialized():
+        raise AssertionError("parallel: the phase's group outlived it")
+
+
+def parallel_mpc(rec, out, mesh, fold_in):
+    """(a) ``sharded_mppi_plan`` at the bench width and (b)
+    ``sharded_batch_mppi_plan`` over 16 scenarios, each against
+    ``mppi.plan`` on the same inputs and streams. Returns B1's launches
+    on the sharded paths (the comparisons' are not counted)."""
+    from quadruped_gym_tpu_torch import parallel
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics.engine import State, make_state
+    from quadruped_gym_tpu_torch.solvers import mppi
+    from quadruped_gym_tpu_torch.solvers.rollout import make_cost_fn
+    from quadruped_gym_tpu_torch.tasks.commands import Command
+
+    dev, dt = torch.device("cuda"), torch.float32
+    m = spec.get_planning_model()
+    cfg = mpc_config("planning").mppi
+    cost_fn = make_cost_fn(m)
+    rng = np.random.default_rng(60)
+    state = make_state(m, dtype=dt, device=dev)
+    state = state._replace(qvel=torch.as_tensor(
+        0.1 * rng.standard_normal(m.nv), dtype=dt, device=dev))
+    cmd, prev = command(dt, dev), prev_ctrl(dt, dev)
+    mean = prev.expand(H_MAIN, m.nu)
+
+    # (a) the main phase's solve through the sample axis
+    gens = []
+    for k in range(PAR_SOLVES):
+        gens.append(torch.Generator(device=dev))
+        gens[-1].manual_seed(61 + k)
+    starts = [_clone(g) for g in gens]
+    solve_s, results = [], []
+    cuda_engine.reset_launch_counts()
+    for g in gens:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(parallel.sharded_mppi_plan(
+            m, cfg, cost_fn, state, mean, cmd, prev, g, mesh))
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t0)
+    n_a = cuda_engine.launch_counts[ROLLOUT]
+    if n_a != PAR_SOLVES or cuda_engine.launch_counts[SUBSTEP]:
+        raise AssertionError(f"parallel (a): launches "
+                             f"{cuda_engine.launch_counts}, want "
+                             f"{PAR_SOLVES} of B1")
+    errs = []
+    for res, g in zip(results, starts):
+        want = mppi.plan(m, cfg, cost_fn, state, mean, cmd, prev,
+                         fold_in(g, 0))
+        if not all(bool(torch.isfinite(x).all()) for x in res):
+            raise AssertionError("parallel (a): non-finite plan")
+        err = float((res.mean - want.mean).abs().max())
+        errs.append(err)
+        if err > PAR_MEAN_TOL * max(1.0, float(want.mean.abs().max())):
+            raise AssertionError(f"parallel (a): the mean differs from "
+                                 f"mppi.plan's by {err:.3e}")
+        if not torch.equal(res.best_cost, want.best_cost):
+            raise AssertionError(f"parallel (a): best cost "
+                                 f"{float(res.best_cost)} vs "
+                                 f"{float(want.best_cost)}")
+    out["mppi"] = {"solve_s": solve_s, "mean_max_abs_err": errs,
+                   "best_cost": [float(r.best_cost) for r in results]}
+    log(f"parallel (a) sharded_mppi_plan planning S={cfg.num_samples} "
+        f"H={H_MAIN} frame_skip {FRAME_SKIP} "
+        f"{cfg.lane_newton_iterations}/{cfg.lane_ls_iterations} fused "
+        f"float32, 1 rank: " + ", ".join(f"{x:.4f}" for x in solve_s)
+        + f" s a solve (host clock, synchronised) = "
+        f"{cfg.num_samples / float(np.median(solve_s)):.1f} rollouts/s "
+        f"(median); against mppi.plan with fold_in(generator, 0): mean "
+        f"max_abs_err " + ", ".join(f"{e:.2e}" for e in errs)
+        + f" (tol {PAR_MEAN_TOL:g} of max(1, max|mean|)), best cost equal "
+        f"({', '.join(f'{c:.4f}' for c in out['mppi']['best_cost'])}); "
+        f"card: {rec['card']}")
+
+    # (b) scenarios x samples on a (1, 1) mesh
+    mesh2 = parallel.make_mesh((parallel.DATA_AXIS, parallel.SAMPLE_AXIS),
+                               (1, 1), device=dev)
+    bcfg = dataclasses.replace(cfg, num_samples=PAR_S)
+    vx = torch.linspace(0.1, 0.3, PAR_B, dtype=dt, device=dev)
+    cmd_list = [command(dt, dev, vx=float(v)) for v in vx]
+    cmds = Command(*(torch.stack(x) for x in zip(*cmd_list)))
+    states = State(*(x.expand((PAR_B,) + x.shape) for x in state))
+    means = prev.expand(PAR_B, H_MAIN, m.nu)
+    prevs = prev.expand(PAR_B, m.nu)
+    g = torch.Generator(device=dev)
+    g.manual_seed(70)
+    start = _clone(g)
+    cuda_engine.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctrl, shifted, best = parallel.sharded_batch_mppi_plan(
+        m, bcfg, cost_fn, states, means, cmds, prevs, g, mesh2)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    n_b = cuda_engine.launch_counts[ROLLOUT]
+    if n_b != PAR_B * bcfg.iterations or cuda_engine.launch_counts[SUBSTEP]:
+        raise AssertionError(f"parallel (b): launches "
+                             f"{cuda_engine.launch_counts}, want {PAR_B}")
+    rank_gen = fold_in(fold_in(start, 0), 0)
+    berr = 0.0
+    for b in range(PAR_B):
+        want = mppi.plan(m, bcfg, cost_fn, state, means[b], cmd_list[b],
+                         prev, fold_in(rank_gen, b))
+        wshift = torch.cat([want.mean[1:], want.mean[-1:]])
+        for got_x, want_x in ((ctrl[b], want.mean[0]), (shifted[b], wshift),
+                              (best[b], want.best_cost)):
+            e = float((got_x - want_x).abs().max())
+            berr = max(berr, e)
+            if not e <= PAR_BATCH_TOL * (1.0 + float(want_x.abs().max())):
+                raise AssertionError(f"parallel (b) scenario {b}: differs "
+                                     f"from mppi.plan by {e:.3e}")
+    out["batch"] = {"s": batch_s, "max_abs_err": berr,
+                    "best_cost": best.tolist()}
+    log(f"parallel (b) sharded_batch_mppi_plan (1, 1) data x sample mesh: "
+        f"B={PAR_B} scenarios (commands 0.1-0.3 m/s) x S={PAR_S}, H={H_MAIN},"
+        f" fused float32, {n_b} B1 launches: {batch_s:.4f} s (host clock, "
+        f"synchronised) = {PAR_B * PAR_S / batch_s:.1f} rollouts/s; against "
+        f"{PAR_B} mppi.plan calls with the fold structure: max_abs_err "
+        f"{berr:.2e} (tol {PAR_BATCH_TOL:g}, relative to 1 + max|x|); "
+        f"best costs {float(best.min()):.4f}..{float(best.max()):.4f}; "
+        f"card: {rec['card']}")
+    return n_a + n_b
+
+
+def parallel_rollouts(rec, out, mesh):
+    """(c) ``sharded_rollout_costs`` and ``pipelined_rollout_cost`` (one
+    stage, two microbatches) against ``batched_rollout_cost`` on the
+    oracle engine."""
+    from quadruped_gym_tpu_torch import parallel
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.solvers import rollout
+
+    dev, dt = torch.device("cuda"), torch.float32
+    m = spec.get_mpc_plant_model()
+    cfg = rollout.RolloutConfig(horizon=PAR_ROLLOUT_H, frame_skip=FRAME_SKIP,
+                                max_contacts=12, solver_iterations=4)
+    cost_fn = rollout.make_cost_fn(m)
+    state = start_state(m, "airborne", np.random.default_rng(80), dt, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(81)
+    seqs = random_seqs(gen, PAR_ROLLOUT_S, PAR_ROLLOUT_H, dt, dev, 0.2)
+    cmd, prev = command(dt, dev), prev_ctrl(dt, dev)
+    stage_mesh = parallel.make_mesh((parallel.STAGE_AXIS,), device=dev)
+    times, res = {}, {}
+    for name, fn in (
+            ("batched", lambda: rollout.batched_rollout_cost(
+                m, cfg, cost_fn, state, seqs, cmd, prev)),
+            ("sharded", lambda: parallel.sharded_rollout_costs(
+                m, cfg, cost_fn, state, seqs, cmd, prev, mesh)),
+            ("pipelined", lambda: parallel.pipelined_rollout_cost(
+                m, cfg, cost_fn, state, seqs, cmd, prev, stage_mesh,
+                num_microbatches=PAR_MICROBATCHES))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    want = res["batched"]
+    if not bool(torch.isfinite(want).all()):
+        raise AssertionError("parallel (c): non-finite costs")
+    errs = {}
+    for name in ("sharded", "pipelined"):
+        err = (res[name] - want).abs()
+        errs[name] = float(err.max())
+        if res[name].shape != want.shape or bool(
+                (err > F32_TOL + F32_TOL * want.abs()).any()):
+            raise AssertionError(f"parallel (c): {name} costs differ from "
+                                 f"batched_rollout_cost by {errs[name]:.3e}")
+    out["rollouts"] = {"s": times, "max_abs_err": errs}
+    log(f"parallel (c) mpc_plant oracle S={PAR_ROLLOUT_S} H={PAR_ROLLOUT_H} "
+        f"frame_skip {FRAME_SKIP}, 12 contacts, 4 Newton passes, float32, "
+        f"airborne: sharded_rollout_costs max_abs_err "
+        f"{errs['sharded']:.2e}, pipelined_rollout_cost (1 stage, "
+        f"{PAR_MICROBATCHES} microbatches) {errs['pipelined']:.2e} against "
+        f"batched_rollout_cost (rtol=atol={F32_TOL:g}); "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+        + f" (host clock, synchronised); card: {rec['card']}")
+
+
+def parallel_sqp(rec, out):
+    """(d) ``sqp.condense`` on a world-1 ``horizon`` mesh against the
+    unsharded one at H=50 and the fast plant's nx and nu, then
+    ``sqp.solve(mesh=)`` at H=4 against the unsharded solve, float64."""
+    from quadruped_gym_tpu_torch import parallel
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.solvers import ilqr, rollout, sqp
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    fp = spec.get_fast_plant_model()
+    nx, nu = ilqr.tangent_dim(fp), fp.nu
+    rng = np.random.default_rng(90)
+    F = torch.as_tensor(rng.standard_normal((H_MAIN, nx, H_MAIN * nu)),
+                        device=dev)
+    lx = torch.as_tensor(rng.standard_normal((H_MAIN, nx)), device=dev)
+    R = torch.as_tensor(rng.standard_normal((H_MAIN, nx, nx)), device=dev)
+    lxx = R @ R.transpose(1, 2)
+    hmesh = parallel.make_mesh(("horizon",), device=dev)
+    got = sqp._condense_sharded(F, lx, lxx, hmesh, "horizon")
+    want = sqp.condense(F, lx, lxx)
+    cerr = max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+    if not cerr <= PAR_CONDENSE_TOL:
+        raise AssertionError(f"parallel (d): the sharded condensation "
+                             f"differs by {cerr:.3e}")
+
+    m = spec.get_planning_model()
+    kw = dict(max_contacts=8, solver_iterations=4)
+    sts, _ = oracle_states(m, f64, dev, **kw)
+    hold = prev_ctrl(f64, dev)
+    cfg = sqp.SQPConfig(iterations=1, rollout=rollout.RolloutConfig(
+        horizon=4, frame_skip=2, **kw))
+    cost_fn = rollout.make_cost_fn(m, vel_smooth_eps=0.02)
+    us0 = torch.clamp(hold + 0.2 * torch.as_tensor(
+        rng.standard_normal((4, m.nu)), device=dev), -1.0, 1.0)
+    args = (m, cfg, cost_fn, sts["contact"], us0, command(f64, dev), hold)
+    want = sqp.solve(*args)
+    got = sqp.solve(*args, mesh=hmesh)
+    serr = {}
+    for f in ("ctrl_seq", "cost"):
+        g, w = getattr(got, f), getattr(want, f)
+        serr[f] = float((g - w).abs().max())
+        if not serr[f] <= GRAD_SQP_TOL * (1.0 + float(w.abs().max())):
+            raise AssertionError(f"parallel (d): sqp.solve(mesh=) {f} "
+                                 f"differs by {serr[f]:.3e}")
+    out["sqp"] = {"condense_rel_err": cerr, "solve_max_abs_err": serr}
+    log(f"parallel (d) sqp.condense on a 1-rank horizon mesh, H={H_MAIN}, "
+        f"nx={nx}, nu={nu}, float64: relative err {cerr:.2e} (tol "
+        f"{PAR_CONDENSE_TOL:g}); sqp.solve(mesh=) planning H=4, 1 "
+        f"iteration: cost {float(want.initial_cost):.6f} -> "
+        f"{float(got.cost):.6f}, against the unsharded solve max_abs_err "
+        f"ctrl_seq {serr['ctrl_seq']:.2e} cost {serr['cost']:.2e} (tol "
+        f"{GRAD_SQP_TOL:g} relative to 1 + max|x|); card: {rec['card']}")
+
+
+def parallel_ppo(rec, out, fold_in):
+    """(e) ``rl.train.main --distributed`` at the trainer's 2,048 envs, one
+    update of 2 env steps, and (f) one ``make_distributed_update`` against
+    ``ppo.update_fn`` from the same TrainState and rank stream: at one
+    rank the all-reduces are copies and the divisions by 1, so the
+    parameters must agree in every bit."""
+    from quadruped_gym_tpu_torch import parallel
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.rl import distributed, ppo, train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, its = train_run(rec, os.path.join(tmp, "dist"), PAR_TRAIN_ARGS,
+                           0, 1, 2)
+        call_s = time.perf_counter() - t0
+    out["train"] = {"update_s": its[0].seconds, "call_s": call_s}
+    log(f"parallel (e) rl.train.main {' '.join(PAR_TRAIN_ARGS)}: "
+        f"{its[0].seconds:.3f} s an update of {N_ENVS} x 2 env steps, the "
+        f"call {call_s:.1f} s; card: {rec['card']}")
+
+    args = train._parser().parse_args(PAR_TRAIN_ARGS)
+    env_cfg = train.make_env_config(args)
+    cfg = ppo.PPOConfig(num_envs=args.num_envs, num_steps=args.num_steps)
+    m = spec.get_mpc_plant_model()
+    mesh = parallel.make_mesh((parallel.DATA_AXIS,), device="cuda")
+    ts_a = distributed.init_distributed_train_state(
+        m, env_cfg, cfg, 3, mesh, device="cuda")
+    ts_b = ppo.init_train_state(m, env_cfg, cfg, 3, device="cuda")
+    ts_b = ts_b._replace(generator=fold_in(_clone(ts_b.generator), 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts_a, _ = distributed.make_distributed_update(m, env_cfg, cfg, mesh)(ts_a)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    ts_b, _ = ppo.update_fn(m, env_cfg, cfg)(ts_b)
+    torch.cuda.synchronize()
+    pa, pb = (list(t.net.state_dict().values()) for t in (ts_a, ts_b))
+    same = [bool(torch.equal(a, b)) for a, b in zip(pa, pb)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    out["update_bitwise"] = all(same)
+    log(f"parallel (f) make_distributed_update vs ppo.update_fn, {N_ENVS} "
+        f"envs x 2 steps, 1 rank: parameters equal in every bit: "
+        f"{all(same)} ({sum(same)} of {len(same)} leaves; max |diff| "
+        f"{diff:.3e}); the distributed update {dist_s:.3f} s; card: "
+        f"{rec['card']}")
+    if not all(same):
+        raise AssertionError("parallel (f): the distributed update at one "
+                             "rank is not update_fn's")
 
 
 def walk_config():

@@ -21,7 +21,9 @@ Run:  python examples/torch_gait_sqp.py --solver sqp --horizon 50
       python examples/torch_gait_sqp.py --solver sqp --linearize fd --tune-eps
       python examples/torch_gait_sqp.py --solver ilqr
 Writes artifacts/torch_gait_<solver>_report.json (or ``--out``).
-``--shard`` (the condensation over a device mesh) is not ported yet.
+``--shard`` cuts SQP's condensation over the ranks of a ``horizon`` mesh
+(every rank of a running ``torch.distributed`` group, else this process
+alone).
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from quadruped_gym_tpu_torch._device import resolve_device  # noqa: E402
+from quadruped_gym_tpu_torch import parallel  # noqa: E402
 from quadruped_gym_tpu_torch.models import spec  # noqa: E402
+from quadruped_gym_tpu_torch.parallel.mesh import group_scope  # noqa: E402
 from quadruped_gym_tpu_torch.physics import engine  # noqa: E402
 from quadruped_gym_tpu_torch.solvers import (ilqr, mppi, rollout,  # noqa: E402
                                              sqp)
@@ -161,7 +165,8 @@ def _parser():
                         "(m/s); 0 = the exact task cost, whose gradient "
                         "at rest is degenerate")
     p.add_argument("--shard", action="store_true",
-                   help="condense over a device mesh (not ported yet)")
+                   help="cut SQP's condensation over the ranks of a "
+                        "'horizon' mesh")
     p.add_argument("--split", action="store_true",
                    help="time each part of an iteration, a synchronise "
                         "after each")
@@ -174,11 +179,12 @@ def _parser():
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.shard:
-        raise NotImplementedError(
-            "--shard (the condensation over a device mesh) is not ported "
-            "yet (ROADMAP.md A.14)")
     device = resolve_device("cpu" if args.cpu else None)
+    with group_scope():
+        return _run(args, device)
+
+
+def _run(args, device):
     dtype = torch.float64 if args.f64 else torch.float32
     print(f"device: {device}, dtype: {str(dtype).removeprefix('torch.')}",
           flush=True)
@@ -225,12 +231,17 @@ def main(argv=None):
               f"best cost {mppi_seed_cost:.1f} in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
 
+    mesh = None
+    if args.shard:
+        mesh = parallel.make_mesh(("horizon",), device=device)
+        print(f"condensation sharded over {mesh.size()} rank(s)", flush=True)
+
     def solve(eps, on_part):
         if args.solver == "sqp":
             cfg = sqp.SQPConfig(iterations=args.iterations, rollout=rcfg,
                                 linearize=args.linearize, fd_eps=eps)
             return sqp.solve(m, cfg, cost_fn, state0, us0, cmd, prev,
-                             on_part=on_part)
+                             mesh=mesh, on_part=on_part)
         cfg = ilqr.ILQRConfig(iterations=args.iterations, rollout=rcfg,
                               linearize=args.linearize, fd_eps=eps)
         return ilqr.solve(m, cfg, cost_fn, state0, us0, cmd, prev,
@@ -265,6 +276,7 @@ def main(argv=None):
         "mppi_seed_cost": mppi_seed_cost,
         "vel_smooth_eps": args.smooth_eps,
         "standing_hold_cost": hold,
+        "condensation_ranks": None if mesh is None else mesh.size(),
         "runs": [],
     }
     for eps in eps_list:

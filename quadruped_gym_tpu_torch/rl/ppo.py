@@ -20,6 +20,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..envs import vector_env
@@ -198,19 +199,26 @@ def clamp_log_std_(net: networks.ActorCritic, cfg: PPOConfig) -> None:
 
 
 def update_fn(m: PhysicsModel, env_cfg: walking.WalkingConfig,
-              cfg: PPOConfig, axis_name: Optional[str] = None):
+              cfg: PPOConfig, axis_name: Optional[str] = None, mesh=None):
     """One PPO update (rollout + epochs of minibatch steps) as a function
-    of the TrainState. ``axis_name`` (the JAX package's data-parallel
-    gradient mean) belongs to the distributed trainer, not ported yet."""
+    of the TrainState.
+
+    With ``axis_name`` (an axis of ``mesh``, ``parallel.make_mesh``) each
+    minibatch's gradients are averaged over the axis's ranks before the
+    clip and Adam: data parallelism, each rank rolling out its own envs
+    (``rl/distributed.py``)."""
+    group = None
     if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel PPO (axis_name, rl/distributed.py) is not ported "
-            "yet (ROADMAP.md A.14)")
+        if mesh is None:
+            raise ValueError(f"axis_name={axis_name!r} needs the mesh that "
+                             "holds the axis")
+        group = mesh.get_group(axis_name)
 
     def update(ts: TrainState) -> Tuple[TrainState, UpdateMetrics]:
         env_state, obs, traj = _rollout(m, env_cfg, cfg, ts.net,
                                         ts.env_state, ts.obs, ts.generator)
-        metrics = _optimize(cfg, ts.net, ts.opt, ts.generator, traj, obs)
+        metrics = _optimize(cfg, ts.net, ts.opt, ts.generator, traj, obs,
+                            group)
         new_ts = ts._replace(env_state=env_state, obs=obs,
                              update_idx=ts.update_idx + 1)
         return new_ts, metrics
@@ -218,11 +226,25 @@ def update_fn(m: PhysicsModel, env_cfg: walking.WalkingConfig,
     return update
 
 
+@torch.no_grad()
+def mean_grads_(params, group) -> None:
+    """The ``.grad`` of ``params`` averaged over the ranks of ``group``
+    (JAX's ``pmean``): one SUM all-reduce of a flat buffer, then a
+    division (gloo has no AVG)."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(part.reshape(g.shape))
+
+
 def _optimize(cfg: PPOConfig, net, opt, gen: torch.Generator,
-              traj: _Transition, last_obs) -> UpdateMetrics:
+              traj: _Transition, last_obs, group=None) -> UpdateMetrics:
     """The learning half of an update: GAE from the value of the obs the
     rollout ended on, then ``epochs`` passes of ``num_minibatches``
-    clipped Adam steps over a fresh permutation each."""
+    clipped Adam steps over a fresh permutation each (their gradients
+    averaged over ``group``'s ranks first, where one is given)."""
     with torch.no_grad():
         last_value = networks.value(net, last_obs)
     adv, ret = _gae(cfg, traj, last_value)
@@ -241,6 +263,8 @@ def _optimize(cfg: PPOConfig, net, opt, gen: torch.Generator,
             opt.zero_grad(set_to_none=True)
             loss, aux = _loss_fn(net, cfg, mb)
             loss.backward()
+            if group is not None:
+                mean_grads_(params, group)
             clip_by_global_norm_(params, cfg.max_grad_norm)
             opt.step()
             clamp_log_std_(net, cfg)
@@ -254,10 +278,13 @@ def _optimize(cfg: PPOConfig, net, opt, gen: torch.Generator,
 
 
 def train_chunk(m: PhysicsModel, env_cfg: walking.WalkingConfig,
-                cfg: PPOConfig, ts: TrainState, num_updates: int):
-    """``num_updates`` PPO updates. Returns (train_state, UpdateMetrics
+                cfg: PPOConfig, ts: TrainState, num_updates: int,
+                update=None):
+    """``num_updates`` PPO updates (of ``update``, by default
+    ``update_fn(m, env_cfg, cfg)``). Returns (train_state, UpdateMetrics
     stacked on a leading update axis); nothing is read back to the host."""
-    update = update_fn(m, env_cfg, cfg)
+    if update is None:
+        update = update_fn(m, env_cfg, cfg)
     history = []
     for _ in range(num_updates):
         ts, metrics = update(ts)

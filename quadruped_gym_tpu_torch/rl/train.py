@@ -16,10 +16,20 @@ in the same process; ``--dashboard`` serves the CSV live
 
 The eval video needs OpenCV and the PNG plot matplotlib; without them
 pass ``--no-eval-video``, and the PNG is skipped with a printed line.
-``--distributed`` is not ported yet (``rl/distributed.py``, ROADMAP.md
-A.14) and raises.
+
+``--distributed`` cuts the env batch over every rank of a
+``torch.distributed`` group (``rl/distributed.py``; ``--num-envs`` is the
+global count): ``parallel.multihost.initialize`` starts the group from
+torchrun's variables, or the process runs as a group of one. Rank 0
+alone writes the CSV, plots, eval, video and dashboard, and the
+checkpoint, which holds the global state (the env state gathered from
+every rank) in the single-process layout; each rank resumes from its
+slice. There is no fine-tune phase under ``--distributed``, as in the JAX
+trainer.
 
 Run:  python -m quadruped_gym_tpu_torch.rl.train --output runs/ppo
+      torchrun --nproc-per-node N -m quadruped_gym_tpu_torch.rl.train \
+          --distributed
 """
 
 from __future__ import annotations
@@ -33,13 +43,15 @@ from typing import NamedTuple, Optional
 
 from .._device import resolve_device
 from ..models import spec
+from ..parallel import DATA_AXIS, make_mesh, multihost
+from ..parallel.mesh import group_scope
 from ..runtime import checkpoint
 from ..tasks import commands, walking
 from ..tasks.rewards import REWARD_KEYS
 from ..utils import plot as plot_mod
 from ..utils import server
 from ..utils.metrics import RewardCSVLogger, read_reward_csv
-from . import evaluate, ppo
+from . import distributed, evaluate, ppo
 
 
 class Iteration(NamedTuple):
@@ -117,65 +129,85 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--video-every", type=int, default=1,
                    help="record the eval video only every Nth iteration")
     p.add_argument("--distributed", action="store_true",
-                   help="shard the env batch over all devices (not "
-                        "ported yet)")
+                   help="cut the env batch over every rank of the "
+                        "process group (torchrun's variables; else this "
+                        "process alone)")
     return p
 
 
 def main(argv=None, device=None):
-    """Train; returns (train_state, [Iteration of each iteration run])."""
+    """Train; returns (train_state, [Iteration of each iteration run]).
+    Under ``--distributed`` the train state is this rank's."""
     args = _parser().parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed (rl/distributed.py) is not ported yet "
-            "(ROADMAP.md A.14)")
     device = resolve_device(device)
+    with group_scope():
+        return _train(args, device)
 
-    out = args.output
-    os.makedirs(os.path.join(out, "logs"), exist_ok=True)
-    os.makedirs(os.path.join(out, "plots"), exist_ok=True)
+
+def _train(args, device):
     m = spec.get_mpc_plant_model()
     env_cfg = make_env_config(args)
     cfg = ppo.PPOConfig(num_envs=args.num_envs, num_steps=args.num_steps,
                         lane_physics=args.lane_physics,
                         log_std_max=args.log_std_max)
-    ts = ppo.init_train_state(m, env_cfg, cfg, args.seed, device=device)
+    mesh, update = None, None
+    if args.distributed:
+        multihost.initialize(device=device)
+        mesh = make_mesh((DATA_AXIS,), device=device)
+        ts = distributed.init_distributed_train_state(
+            m, env_cfg, cfg, args.seed, mesh, device=device)
+        update = distributed.make_distributed_update(m, env_cfg, cfg, mesh)
+    else:
+        ts = ppo.init_train_state(m, env_cfg, cfg, args.seed, device=device)
+    lead = mesh is None or mesh.get_rank() == 0  # writes the files
+
+    out = args.output
+    if lead:
+        os.makedirs(os.path.join(out, "logs"), exist_ok=True)
+        os.makedirs(os.path.join(out, "plots"), exist_ok=True)
     ckpt_dir = os.path.join(out, "policy")
     start_iter = 0
     if checkpoint.exists(ckpt_dir):  # crash resume
-        ts, step = checkpoint.restore(ckpt_dir, ts)
+        if mesh is None:
+            ts, step = checkpoint.restore(ckpt_dir, ts)
+        else:
+            ts, step = distributed.restore(ckpt_dir, ts, mesh)
         start_iter = int(step or 0)
         print(f"resumed from {ckpt_dir} at iteration {start_iter}",
               flush=True)
 
     csv_path = os.path.join(out, "rewards_continuous.csv")
-    logger = RewardCSVLogger(csv_path, REWARD_KEYS)
-    if args.dashboard:
+    logger = RewardCSVLogger(csv_path, REWARD_KEYS) if lead else None
+    if args.dashboard and lead:
         server.launch_dash(csv_path, block=False)
         print("dashboard on :8050", flush=True)
     updates_per_iter = max(1, args.timesteps_per_iteration // cfg.batch_size)
 
-    # the main run, then (optionally) the log_std-clamped fine-tune
+    # the main run, then (optionally) the log_std-clamped fine-tune; none
+    # under --distributed, as in the JAX trainer
     plan = [(start_iter + i, cfg, "") for i in range(args.iterations)]
     cfg_ft = dataclasses.replace(cfg, log_std_max=args.finetune_log_std_max)
     base = start_iter + args.iterations
-    plan += [(base + i, cfg_ft,
-              f" [finetune log_std<={args.finetune_log_std_max}]")
-             for i in range(args.finetune_iterations)]
+    if mesh is None:
+        plan += [(base + i, cfg_ft,
+                  f" [finetune log_std<={args.finetune_log_std_max}]")
+                 for i in range(args.finetune_iterations)]
 
     history = []
     try:
         for it, cfg_it, phase_tag in plan:
             t0 = time.perf_counter()
             ts, metrics = ppo.train_chunk(m, env_cfg, cfg_it, ts,
-                                          updates_per_iter)
+                                          updates_per_iter, update)
             # (updates, num_steps, 11) -> one CSV row per policy step
             comp = metrics.reward_components.reshape(
                 -1, len(REWARD_KEYS)).cpu().numpy()  # waits for the card
             dt = time.perf_counter() - t0
             steps_done = updates_per_iter * cfg.batch_size
-            logger.log_many(it * updates_per_iter * cfg.num_steps, comp)
-            checkpoint.save(ckpt_dir, ts, step=it + 1)
+            saved = ts if mesh is None else distributed.gather(ts, mesh)
+            if lead:
+                logger.log_many(it * updates_per_iter * cfg.num_steps, comp)
+                checkpoint.save(ckpt_dir, saved, step=it + 1)
             print(
                 f"iter {it}: {steps_done} steps in {dt:.1f}s "
                 f"({steps_done / dt:,.0f} steps/s), mean step reward "
@@ -183,16 +215,18 @@ def main(argv=None, device=None):
                 f"kl {float(metrics.approx_kl[-1]):.4f}{phase_tag}",
                 flush=True,
             )
-            logger.flush()
-            _plots(out, csv_path, it)
             eval_s = None
-            if not args.no_eval:
-                t0 = time.perf_counter()
-                _eval(args, out, ts, it, start_iter, device)
-                eval_s = time.perf_counter() - t0
+            if lead:
+                logger.flush()
+                _plots(out, csv_path, it)
+                if not args.no_eval:
+                    t0 = time.perf_counter()
+                    _eval(args, out, ts, it, start_iter, device)
+                    eval_s = time.perf_counter() - t0
             history.append(Iteration(it, dt, metrics, eval_s))
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     print("done", flush=True)
     return ts, history
 

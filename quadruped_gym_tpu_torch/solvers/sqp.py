@@ -13,8 +13,11 @@ with F_t = d x_{t+1} / d(u_0..u_{H-1}) the state-control sensitivities
 (dx_{t+1} = A_t dx_t + B_t du_t). The box QP solves by ADMM: one Cholesky
 of Hqp + rho I, then a fixed count of triangular solves with a
 closed-form box projection. The linearization and the cost expansion are
-iLQR's. The JAX package can shard the sum over t across a device mesh;
-that path is not ported yet (ROADMAP.md A.14).
+iLQR's. With a ``mesh``, the sum over t is cut over the ranks of its
+``horizon`` axis: each rank condenses its contiguous slice of the blocks
+and one SUM all-reduce assembles Hqp and g; everything else stays
+replicated, as in the JAX package, where only the condensation sits in
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.spec import PhysicsModel
 from ..physics import maths
@@ -30,10 +34,6 @@ from ..physics.engine import State
 from ..tasks.commands import Command
 from . import ilqr as ilqr_mod
 from . import rollout as rollout_mod
-
-_SHARDED = ("the sharded condensation (a device mesh over the horizon) is "
-            "not ported yet (ROADMAP.md A.14)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SQPConfig:
@@ -74,17 +74,46 @@ def condense(
     lx: torch.Tensor,  # (H, nx)
     lxx: torch.Tensor,  # (H, nx, nx)
     axis_name: Optional[str] = None,
+    mesh=None,
 ):
     """(Hqp (H*nu, H*nu), g (H*nu,)): the horizon-block reduction of the
     state-cost terms (``_add_control_blocks`` adds the separable control
-    blocks). The sum over t is one product over the stacked (H*nx) rows."""
-    if axis_name is not None:
-        raise NotImplementedError(_SHARDED)
+    blocks). The sum over t is one product over the stacked (H*nx) rows.
+
+    With ``axis_name`` (an axis of ``mesh``), F, lx and lxx are this
+    rank's blocks of the horizon and one SUM all-reduce over the axis's
+    group assembles the whole system on every rank."""
     H, nx, HU = F.shape
     Fs = F.reshape(H * nx, HU)
     g = Fs.T @ lx.reshape(H * nx)
     Hqp = Fs.T @ (lxx @ F).reshape(H * nx, HU)
+    if axis_name is not None:
+        if mesh is None:
+            raise ValueError(f"axis_name={axis_name!r} needs the mesh that "
+                             "holds the axis")
+        both = torch.cat([Hqp.reshape(-1), g])
+        dist.all_reduce(both, dist.ReduceOp.SUM,
+                        group=mesh.get_group(axis_name))
+        Hqp, g = both[:HU * HU].reshape(HU, HU), both[HU * HU:]
     return Hqp, g
+
+
+def _condense_sharded(F, lx, lxx, mesh, axis_name):
+    """``condense`` with the horizon blocks cut over ``mesh[axis_name]``:
+    H is zero-padded to a multiple of the axis size (a zero block adds
+    nothing) and each rank takes its contiguous slice."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis_name))
+    H = F.shape[0]
+    per = -(-H // n)
+    pad = per * n - H
+    r = mesh.get_local_rank(axis_name)
+
+    def mine(x):
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) if pad else x
+        return x[r * per:(r + 1) * per]
+
+    return condense(mine(F), mine(lx), mine(lxx), axis_name=axis_name,
+                    mesh=mesh)
 
 
 def _add_control_blocks(Hqp, g, lu, luu, t_offset=0):
@@ -140,19 +169,24 @@ def solve(
     on_part: Optional[Callable[[str], None]] = None,
 ) -> SQPResult:
     """SQP from ``ctrl_seq``, on the device of its tensors, without a
-    host read-back. ``mesh`` (the sharded condensation) is not ported.
-    ``on_part``, if given, is called with the name of each part as it is
+    host read-back. With ``mesh`` (a ``parallel.make_mesh`` with an
+    ``axis_name`` axis) every rank runs the solve on the same inputs and
+    the condensation is cut over the axis's ranks. ``on_part``, if given, is called with the name of each part as it is
     issued ("rollout": the initial guess's, once; then per iteration
     "linearize", "quadratize", "qp": sensitivities, condensation and
     ADMM, "line_search"), for a caller that times them."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+    if mesh is None:
+        condense_full = condense
+    else:
+        def condense_full(F, lx, lxx):
+            return _condense_sharded(F, lx, lxx, mesh, axis_name)
     with maths.true_fp32():
         return _solve(m, cfg, cost_fn, state0, ctrl_seq, cmd, prev_ctrl0,
-                      on_part or (lambda part: None))
+                      on_part or (lambda part: None), condense_full)
 
 
-def _solve(m, cfg, cost_fn, state0, ctrl_seq, cmd, prev_ctrl0, on_part):
+def _solve(m, cfg, cost_fn, state0, ctrl_seq, cmd, prev_ctrl0, on_part,
+           condense_full):
     H, nu = ctrl_seq.shape
     dt, dev = ctrl_seq.dtype, ctrl_seq.device
     lo_u, hi_u = ilqr_mod._ctrl_range(m, ctrl_seq)
@@ -177,7 +211,7 @@ def _solve(m, cfg, cost_fn, state0, ctrl_seq, cmd, prev_ctrl0, on_part):
                                                     us, prev_ctrl0)
         on_part("quadratize")
         F = sensitivities(A, B)
-        Hqp, g = condense(F, lx, lxx)
+        Hqp, g = condense_full(F, lx, lxx)
         Hqp, g = _add_control_blocks(Hqp, g, lu, luu)
         Hqp = Hqp + cfg.reg * eye
         Hqp = 0.5 * (Hqp + Hqp.T)  # PSD safeguard: symmetric part only

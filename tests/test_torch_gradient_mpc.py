@@ -177,8 +177,15 @@ def test_gait_entry_point_runs_on_the_cpu(tmp_path):
     assert run["ctrl_within_range"]
     assert set(run["split_s_per_iteration"]) == {
         "linearize", "quadratize", "qp", "line_search"}
-    with pytest.raises(NotImplementedError, match="A.14"):
-        gait.main(["--cpu", "--shard"])
+    assert rep["condensation_ranks"] is None
+    # the condensation over a horizon mesh of this process alone
+    shard = gait.main(["--cpu", "--f64", "--shard", "--horizon", "3",
+                       "--frame-skip", "1", "--iterations", "1",
+                       "--settle-steps", "40", "--out",
+                       str(tmp_path / "shard.json")])
+    assert shard["condensation_ranks"] == 1
+    assert shard["runs"][0]["final_cost"] < shard["runs"][0]["initial_cost"]
+    assert not torch.distributed.is_initialized()
 
 
 def test_closed_loop_entry_point_runs_on_the_cpu(tmp_path):

@@ -44,7 +44,9 @@ def test_sources_found():
                 "runtime/checkpoint", "utils/__init__", "utils/metrics",
                 "envs/gym_env", "envs/rendering", "rl/evaluate",
                 "utils/plot", "utils/server", "solvers/ilqr", "solvers/sqp",
-                "runtime/config"):
+                "runtime/config", "rl/distributed", "parallel/__init__",
+                "parallel/mesh", "parallel/multihost", "parallel/pipeline",
+                "parallel/sharded_mpc"):
         assert f"quadruped_gym_tpu_torch/{mod}.py" in names
     for example in ("torch_gait_sqp", "torch_closed_loop_gradient"):
         assert f"examples/{example}.py" in names
@@ -63,7 +65,8 @@ def test_no_jax_imports(path):
 NOT_PORTED = {
     "envs": set(),
     "ops": set(),
-    "rl": {"distributed"},  # A.14
+    "parallel": set(),
+    "rl": set(),
     "solvers": set(),
     "utils": set(),
 }

@@ -4,7 +4,11 @@ condensation algebra and the box QP against live JAX on the JAX tests'
 shapes, ``fd_linearize`` (airborne and in contact) and ``ad_linearize``
 at the model's Newton budget against jitted JAX probes, and the whole
 solve against the JAX results committed in ``tests/torch_gradient_refs.npz``
-(the ``slow`` test here recomputes that file's results live)."""
+(the ``slow`` test here recomputes that file's results live). The sharded
+condensation over 2 and 4 gloo ranks (``tests/torch_dist_workers.py``)
+against JAX's under ``shard_map`` on as many virtual CPU devices, a
+horizon the ranks divide and one they do not (zero-padded), 1e-12; and
+``solve(mesh=)`` over those ranks against the unsharded solve, 1e-10."""
 
 import functools
 
@@ -16,12 +20,16 @@ import torch
 from torch_gradient_cases import (F64, HOLD, JM, STEP_KW, TM, close, jstate,
                                   refs, snapshot_script, to_jax_states,
                                   to_torch_states, trajectory, tstate)
+import torch_dist_workers as W
 from torch_jax_cache import no_cache_files  # noqa: F401 (autouse fixture)
 
+from quadruped_gym_tpu import parallel as jparallel
 from quadruped_gym_tpu.physics import engine as jengine
 from quadruped_gym_tpu.solvers import ilqr as jilqr
 from quadruped_gym_tpu.solvers import sqp as jsqp
+from quadruped_gym_tpu_torch import parallel
 from quadruped_gym_tpu_torch.models import spec as tspec
+from quadruped_gym_tpu_torch.parallel.mesh import group_scope
 from quadruped_gym_tpu_torch.physics import engine
 from quadruped_gym_tpu_torch.solvers import ilqr, rollout, sqp
 from quadruped_gym_tpu_torch.tasks import commands
@@ -178,17 +186,82 @@ def test_sqp_reduces_cost():
 
 
 def test_sharded_condensation_is_not_ported():
-    F, lx, lxx = torch.zeros(2, 3, 4), torch.zeros(2, 3), torch.zeros(2, 3, 3)
-    with pytest.raises(NotImplementedError, match="A.14"):
+    """The sharded condensation runs: at one rank (a group of this process
+    alone) it equals the unsharded one in every bit, and an ``axis_name``
+    without the mesh that holds it raises. ``SQPConfig``'s defaults are
+    the JAX package's."""
+    F, lx, lxx = (torch.as_tensor(x) for x in W.condense_case(5))
+    with pytest.raises(ValueError, match="needs the mesh"):
         sqp.condense(F, lx, lxx, axis_name="horizon")
-    with pytest.raises(NotImplementedError, match="A.14"):
-        sqp.solve(TM, sqp.SQPConfig(), None, tstate("airborne"),
-                  torch.zeros(2, 12, dtype=F64), None, torch.as_tensor(HOLD),
-                  mesh=object())
+    with group_scope():
+        mesh = parallel.make_mesh(("horizon",), device="cpu")
+        got = sqp._condense_sharded(F, lx, lxx, mesh, "horizon")
+    for g, w in zip(got, sqp.condense(F, lx, lxx)):
+        assert torch.equal(g, w)
     assert sqp.SQPConfig() == sqp.SQPConfig(
         **{k: getattr(jsqp.SQPConfig(), k) for k in (
             "iterations", "linearize", "fd_eps", "reg", "qp_iterations",
             "alphas")})
+
+
+# horizons of the sharded condensation: one the ranks divide, one padded
+SHARD_HORIZONS = (8, 5)
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
+def sharded(request, tmp_path_factory):
+    world = request.param
+    tmp = tmp_path_factory.mktemp(f"sqp{world}")
+    return world, W.run(W.sqp_body, world, tmp, SHARD_HORIZONS, True)
+
+
+def _jax_sharded_condense(F, lx, lxx, world):
+    """JAX's condensation under ``shard_map`` over ``world`` virtual CPU
+    devices, H zero-padded to a multiple of them (jax sqp.py:213-227)."""
+    from jax.sharding import PartitionSpec as P
+
+    mesh = jparallel.make_mesh(jax.devices("cpu")[:world],
+                               axis_names=("horizon",))
+    pad = (-F.shape[0]) % world
+    args = [jnp.pad(jnp.asarray(x), ((0, pad),) + ((0, 0),) * (x.ndim - 1))
+            for x in (F, lx, lxx)]
+    fn = jax.shard_map(
+        lambda f, a, b: jsqp.condense(f, a, b, axis_name="horizon"),
+        mesh=mesh, in_specs=(P("horizon"),) * 3, out_specs=(P(), P()))
+    return fn(*args)
+
+
+@pytest.mark.parametrize("H", SHARD_HORIZONS, ids=["divisible", "padded"])
+def test_sharded_condense_matches_jax(sharded, H):
+    world, outs = sharded
+    F, lx, lxx = W.condense_case(H)
+    want = _jax_sharded_condense(F, lx, lxx, world)
+    for o in outs:
+        assert o[H][0].shape == (H * 3, H * 3) and o[H][1].shape == (H * 3,)
+        for g, w in zip(o[H], want):
+            close(g.numpy(), np.asarray(w), 1e-12)
+        for g, w in zip(o[H], outs[0][H]):
+            assert torch.equal(g, w)
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded_solve():
+    return sqp.solve(*W.sqp_problem())
+
+
+def test_sharded_solve_matches_unsharded(sharded):
+    """``solve(mesh=)`` over the ranks (H=3: over 4 ranks one condenses a
+    zero block): the condensation cut over them, the rest replicated;
+    equal to the unsharded solve (1e-10) and the same in every bit on
+    every rank."""
+    world, outs = sharded
+    want = _unsharded_solve()
+    assert float(want.cost) < float(want.initial_cost)
+    for o in outs:
+        for f, g, w in zip(sqp.SQPResult._fields, o["solve"], want):
+            close(g.numpy(), w.numpy(), 1e-10)
+        for g, w in zip(o["solve"], outs[0]["solve"]):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.slow

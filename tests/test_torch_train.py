@@ -8,7 +8,7 @@ logger's bytes, ``utils/plot.py`` the JAX overview's and
 ``utils/server.py`` serves what the JAX dashboard serves; ``rl/train.
 main`` trains 4 envs x 4 steps for 2 iterations, resumes at iteration 2
 exactly where an uninterrupted run would be, runs its per-iteration eval,
-plots and dashboard, and refuses ``--distributed``."""
+plots and dashboard, and runs ``--distributed`` as a group of one."""
 
 import json
 import os
@@ -198,20 +198,27 @@ def test_train_main_resumes_where_it_stopped(tmp_path, capsys):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    out = ["--output", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A.14"):
-        train.main(out + ["--distributed", "--no-eval"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A.14"):
+    """``--distributed`` runs on the CPU (a group of this process alone,
+    gone after the call); a data-parallel ``update_fn`` needs the mesh of
+    its axis; and nothing runs on the CPU unless asked."""
+    out = ["--output", str(tmp_path / "dist")]
+    ts, its = train.main(out + ["--distributed", "--iterations", "1"]
+                         + SMALL, device="cpu")
+    assert not torch.distributed.is_initialized()
+    assert [it.index for it in its] == [0]
+    assert checkpoint.read(str(tmp_path / "dist" / "policy"))[1] == 1
+    assert len(_csv(str(tmp_path / "dist"))[0]) == 4
+    with pytest.raises(ValueError, match="needs the mesh"):
         tppo.update_fn(TM, twalk.WalkingConfig(), tppo.PPOConfig(),
                        axis_name="data")
-    assert not os.listdir(tmp_path)  # refused before writing anything
+    out = ["--output", str(tmp_path / "none")]
     if not torch.cuda.is_available():  # the card unless the caller says cpu
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(out + ["--no-eval"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tppo.init_train_state(TM, twalk.WalkingConfig(),
                                   tppo.PPOConfig(num_envs=1), 0)
-    assert not os.listdir(tmp_path)
+    assert not os.path.exists(tmp_path / "none")
 
 
 # the keys of a line of the JAX trainer's eval_metrics.jsonl: its
