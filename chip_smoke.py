@@ -31,7 +31,10 @@ Phases, each of which raises on failure (nothing is caught):
    air, 1e-9) on ``mpc_plant`` and on ``full``; and against the leg
    engine on the card, float64, through ``lane_batched_rollout_cost``
    (``"lane"`` against ``"leg"``, ``mpc_plant``, H=2, 1e-8). B1 at the
-   parallel phase's batch width (S=4,096, H=50, 2/4, 2 m up) too.
+   parallel phase's batch width (S=4,096, H=50, 2/4, 2 m up) too, and at
+   the tools phase's: the scenario sweep's (S=16,384, 4/8, DomainParams
+   with terrain at its ranges) and the latency demo's planner (S=1,024,
+   2/4), each grounded over one control step, float32.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -77,9 +80,10 @@ Phases, each of which raises on failure (nothing is caught):
    2,048 envs, one update of 2 env steps; (f) one
    ``make_distributed_update`` against ``ppo.update_fn`` from the same
    state and rank stream: equal parameters in every bit.
-9. loop: the closed loop at the width of the JAX package's
-   ``examples/closed_loop_walk.py``: MPPI (1,024 samples, H=20, 2
-   iterations, fused kernel) on the planning model driving the oracle
+9. loop: the closed loop through ``examples/torch_closed_loop_walk.py``'s
+   ``main`` (the JAX package's ``examples/closed_loop_walk.py``): MPPI
+   (1,024 samples, H=20, 2 iterations, fused kernel) on the planning
+   model driving the oracle
    engine on the ``mpc_plant`` model (feet, shins and ankle servos with
    full hulls) for 200 control steps of ``closed_loop`` under a 0.15 m/s
    forward command, float32. The walk must be finite, upright and go
@@ -106,7 +110,8 @@ Phases, each of which raises on failure (nothing is caught):
    (``artifacts/walk_r5/policy_params``) on 2,048 of the run's
    observations: card float32 against CPU float64. Neither kernel runs
    on this path (as in the JAX package: the trainer's physics is the
-   oracle engine or the eager leg engine).
+   oracle engine or the eager leg engine). The run's folder (checkpoint,
+   reward CSV) is kept for the tools phase.
 11. eval: the trainer's per-iteration eval. The committed policy through
    ``rl.evaluate.eval_rollout`` on the card in float32
    (``POWalkingQuadrupedEnv`` on ``full``, obs window 10, frame_skip 10,
@@ -131,13 +136,35 @@ Phases, each of which raises on failure (nothing is caught):
    step of ``delayed_closed_loop`` with SQP; one gait SQP iteration
    traced in parts around the settled stance (``torch.profiler``:
    kernels, device time, idle share). Neither kernel runs on this path.
-13. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+13. tools: the ported examples and scripts through their entry points.
+   (a) ``utils.profiling.measure`` of B1 at the main width (S=65,536,
+   H=50, 2/4, float32) against its roofline (``cost_summary`` of the plain
+   version, equal to ``rollout_flops``; the kernel's true bytes), one
+   launch traced into ``chiprun_out/tools_trace_b1`` in a process of its
+   own, which must see the kernel on the card; (b)
+   ``examples/torch_scenario_sweep.py`` at 16,384 scenarios (one B1 launch
+   with DomainParams, timed cold and warm); (c)
+   ``scripts/torch_kernel_roofline.py``: the saturation curve over S =
+   1,024 ... 65,536, the bounds, registers and occupancy, a trace; (d)
+   ``examples/torch_random_rollout.py``, 50 oracle substeps; (e)
+   ``examples/torch_latency_demo.py``: synchronised and pipelined solves,
+   then the two-process 100 Hz drive over the native ``ControlBus``
+   against a plant process stepping the oracle engine on the CPU
+   (deadline misses are reported, not gated); (f)
+   ``scripts/torch_eval_report.py`` on the committed policy, one
+   stochastic and one deterministic episode of 3 control steps; (g)
+   ``scripts/torch_export_policy.py`` on the train phase's checkpoint,
+   read back bit for bit; (h) the native library builds, a
+   ``NativeRewardLogger`` writes 20,000 rows and drops none, and the train
+   phase's reward CSV is the native writer's byte for byte. Every cut is
+   at ``TOOLS_MEASURE_ITERS`` ... ``TOOLS_EVAL_MAX_TIME`` below.
+14. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 12 each set the launch counters to 0 just before driving
+Phases 4 to 13 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -159,19 +186,22 @@ import time
 import numpy as np
 import torch
 
+from quadruped_gym_tpu_torch._device import card_line
+from quadruped_gym_tpu_torch.utils.profiling import H100
+
 PHASES = ("device", "build", "check", "main", "plan", "env", "lane",
-          "parallel", "loop", "train", "eval", "grad", "time")
+          "parallel", "loop", "train", "eval", "grad", "tools", "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
 BUDGET = {"planning": (2, 4), "fast_plant": (4, 8)}
 N_ENVS = 2048  # PPOConfig.num_envs of the JAX package
 ENV_FRAME_SKIP = 4
-# published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
-# cores in FLOP/s (an FMA counts two, as cuda_engine.count_ops counts it),
-# HBM3 bandwidth
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
+# the published H100 SXM peaks (utils/profiling.py's H100: FP32 outside
+# the tensor cores in FLOP/s, an FMA counted two as cuda_engine.count_ops
+# counts it; HBM3 bandwidth)
+PEAK_FP32 = H100.peak_flops_f32
+PEAK_BYTES = H100.peak_hbm_bytes
 F64_TOL = 1e-8
 # float32: ~6e-8 rounding per operation, amplified through the Newton
 # contact solve over 5 substeps; a wrong kernel misses by far more
@@ -266,6 +296,25 @@ PAR_CONDENSE_TOL = 1e-12
 PAR_TRAIN_ARGS = ["--distributed", "--num-steps", "2",
                   "--timesteps-per-iteration", "4096", "--iterations", "1",
                   "--no-eval"]
+# the tools phase (the ported examples and scripts of the JAX package):
+# (a) profiling.measure of B1 at the main width; (b) the scenario sweep at
+# its default width; (c) the roofline curve, its repetitions cut from 10;
+# (d) the random rollout cut from 10 s to 0.1 s (50 oracle substeps); (e)
+# the latency demo, its measurements cut from 50 to 5 solves, its drive
+# from 5 s to 2 s, the plant's settling from 400 to 200 steps; (f) the eval
+# report on the committed policy, one seed, its 20 s episode cut to 3
+# control steps; (g) the export of the train phase's checkpoint; (h) the
+# native logger at 20,000 rows
+TOOLS_MEASURE_ITERS = 3
+# (a)'s traced launch runs in a process of its own (``trace_b1``)
+TRACE_TIMEOUT_S = 300
+SWEEP_S, SWEEP_SEED = 16384, 0
+ROOFLINE_REPS = 3
+RANDOM_ROLLOUT_S = 0.1
+LATENCY_ARGS = ["--measure-iters", "5", "--seconds", "2",
+                "--settle-steps", "200"]
+TOOLS_EVAL_MAX_TIME = 0.06
+NATIVE_ROWS = 20000
 EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
              "final_tracking_error", "mean_uprightness", "command_speed",
              "iteration"}
@@ -275,12 +324,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # --------------------------------------------------------------------------
@@ -331,7 +374,7 @@ def random_seqs(gen, S, H, dtype, device, scale):
 
 def phase_device(rec):
     name = torch.cuda.get_device_name(0)
-    rec["card"] = card_line()
+    rec["card"] = card_line("cuda")
     rec["kind"] = name
     log(f"device: {name} (count {torch.cuda.device_count()}); "
         f"nvidia-smi: {rec['card']}")
@@ -533,9 +576,12 @@ def phase_check(rec):
     # because grounded rollouts diverge chaotically across bit-different
     # programs over longer horizons
     # the closed loop's planner launches the same kernel at its own width
-    # and budget (fewer blocks than the card has SMs): taken from the
-    # loop's configuration so the two cannot drift apart
-    walk = walk_config().mppi
+    # and budget (fewer blocks than the card has SMs), and so do the tools
+    # phase's scenario sweep (DomainParams with terrain) and latency demo:
+    # each taken from its example so the two cannot drift apart
+    walk = _example("torch_closed_loop_walk").mpc_config().mppi
+    sweep = _example("torch_scenario_sweep")
+    demo = _example("torch_latency_demo").mpc_config().mppi
     rec["max_abs_err_main_shape"] = max(
         check_case(rec, "f32 planning grounded (main-path width)",
                    "planning", "grounded", S_MAIN, 1, FRAME_SKIP,
@@ -560,6 +606,15 @@ def phase_check(rec):
         check_case(rec, "f32 planning high (parallel batch width)",
                    "planning", "high", PAR_S, H_MAIN, FRAME_SKIP,
                    BUDGET["planning"], f32, F32_TOL, seed=10),
+        check_case(rec, "f32 planning grounded DomainParams (sweep width)",
+                   "planning", "grounded", SWEEP_S, 1, sweep.FRAME_SKIP,
+                   sweep.BUDGET, f32, F32_TOL, dp_ranges=sweep.DP_RANGES,
+                   seed=19),
+        check_case(rec, "f32 planning grounded (latency demo width)",
+                   "planning", "grounded", demo.num_samples, 1,
+                   demo.rollout.frame_skip,
+                   (demo.lane_newton_iterations, demo.lane_ls_iterations),
+                   f32, F32_TOL, seed=20),
     )
     # the substep kernel: float64 at B around 4,096 (one B that 128 does
     # not divide), then float32 at the widths of its two main paths
@@ -1661,97 +1716,21 @@ def parallel_ppo(rec, out, fold_in):
                              "rank is not update_fn's")
 
 
-def walk_config():
-    """The planner and plant budgets of the JAX package's
-    ``examples/closed_loop_walk.py``."""
-    from quadruped_gym_tpu_torch.runtime.mpc_runtime import MPCConfig
-    from quadruped_gym_tpu_torch.solvers.mppi import MPPIConfig
-    from quadruped_gym_tpu_torch.solvers.rollout import RolloutConfig
-
-    return MPCConfig(
-        solver="mppi",
-        mppi=MPPIConfig(
-            num_samples=1024, sigma=0.25, temperature=0.5, iterations=2,
-            lane=True, lane_engine_impl="fused",
-            rollout=RolloutConfig(horizon=20, frame_skip=5)),
-        plant_frame_skip=5, plant_max_contacts=12, plant_solver_iterations=4)
-
-
-def walk_setup(device, seed):
-    """(planning model, plant model, config, cost, command, carry, state)
-    of the closed-loop walk on ``device``, float32."""
-    from quadruped_gym_tpu_torch.models import spec
-    from quadruped_gym_tpu_torch.physics.engine import make_state
-    from quadruped_gym_tpu_torch.runtime import mpc_runtime
-    from quadruped_gym_tpu_torch.solvers.rollout import make_cost_fn
-
-    dt = torch.float32
-    pm, plant = spec.get_planning_model(), spec.get_mpc_plant_model()
-    cfg = walk_config()
-    cmd = command(dt, device, WALK_SPEED, 0.0, 0.0)
-    carry = mpc_runtime.init_carry(pm, cfg, cfg.rollout.horizon, seed=seed,
-                                   dtype=dt, device=device)
-    phys = make_state(plant, dtype=dt, device=device)
-    return pm, plant, cfg, make_cost_fn(pm), cmd, carry, phys
-
-
-def walk_summary(pm, ctrls, sens, costs, n_steps, wall_s):
-    """The example's five summary lines and the numbers the limits read;
-    raises unless the walk is finite, upright and went forward."""
-    from quadruped_gym_tpu_torch.tasks.rewards import SensorSlices
-
-    for name, x in (("controls", ctrls), ("sensors", sens),
-                    ("costs", costs)):
-        if not bool(torch.isfinite(x).all()):
+def walk_check(walk):
+    """Raises unless the walk's trajectories have their shapes and are
+    finite, and the robot stayed upright and went forward."""
+    n = walk["steps"]
+    for name in ("ctrls", "sens", "costs"):
+        if not bool(torch.isfinite(walk[name]).all()):
             raise AssertionError(f"walk: non-finite {name}")
-    sl = SensorSlices.from_model(pm)
-    sens = sens.double().cpu().numpy()
-    pos = sens[:, sl.pos:sl.pos + 3]
-    vel = sens[:, sl.vel:sl.vel + 2]
-    z = sens[:, sl.zaxis + 2]
-    warm = n_steps // 4
-    out = {"steps": n_steps, "wall_s": wall_s,
-           "forward_m": float(pos[-1][0]), "sideways_m": float(pos[-1][1]),
-           "mean_vx": float(vel[warm:, 0].mean()),
-           "mean_abs_vy": float(np.abs(vel[warm:, 1]).mean()),
-           "upright_min": float(z.min()),
-           "height_min": float(pos[:, 2].min()),
-           "height_max": float(pos[:, 2].max())}
-    log(f"walk: done in {wall_s:.1f} s wall ({n_steps} control steps, "
-        f"{n_steps * 5 * pm.timestep:.1f} s simulated)")
-    log(f"walk: commanded +x {WALK_SPEED} m/s; traveled "
-        f"({out['forward_m']:+.3f}, {out['sideways_m']:+.3f}) m")
-    log(f"walk: mean local vx after warmup {out['mean_vx']:+.3f}, "
-        f"mean |vy| {out['mean_abs_vy']:.3f}")
-    log(f"walk: uprightness min {out['upright_min']:.3f} "
-        f"(never flipped: {out['upright_min'] > 0})")
-    log(f"walk: body height {out['height_min']:.3f} - "
-        f"{out['height_max']:.3f} m")
-    if not out["upright_min"] > WALK_LIMITS["upright"]:
-        raise AssertionError(f"walk: uprightness {out['upright_min']:.3f}")
-    if not out["forward_m"] > WALK_LIMITS["forward_m"]:
-        raise AssertionError(f"walk: only {out['forward_m']:.3f} m forward")
-    if not abs(out["sideways_m"]) < WALK_LIMITS["sideways_m"]:
-        raise AssertionError(f"walk: {out['sideways_m']:.3f} m sideways")
-    return out
-
-
-def run_walk(device, n_steps, seed=0):
-    """``closed_loop`` for ``n_steps`` on the card: the summary dict, and
-    the carry and plant state it ended in."""
-    from quadruped_gym_tpu_torch.runtime import mpc_runtime
-
-    pm, plant, cfg, cost_fn, cmd, carry, phys = walk_setup(device, seed)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    carry, phys, (ctrls, sens, costs) = mpc_runtime.closed_loop(
-        pm, cfg, cost_fn, carry, phys, cmd, n_steps, plant_model=plant)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if ctrls.shape != (n_steps, 12) or sens.shape != (n_steps, 33):
+    if walk["ctrls"].shape != (n, 12) or walk["sens"].shape != (n, 33):
         raise AssertionError("walk: wrong trajectory shapes")
-    out = walk_summary(pm, ctrls, sens, costs, n_steps, wall)
-    return out, carry, phys
+    if not walk["upright_min"] > WALK_LIMITS["upright"]:
+        raise AssertionError(f"walk: uprightness {walk['upright_min']:.3f}")
+    if not walk["forward_m"] > WALK_LIMITS["forward_m"]:
+        raise AssertionError(f"walk: only {walk['forward_m']:.3f} m forward")
+    if not abs(walk["sideways_m"]) < WALK_LIMITS["sideways_m"]:
+        raise AssertionError(f"walk: {walk['sideways_m']:.3f} m sideways")
 
 
 def phase_loop(rec):
@@ -1760,7 +1739,8 @@ def phase_loop(rec):
     from quadruped_gym_tpu_torch.runtime import mpc_runtime
 
     dev = torch.device("cuda")
-    iters = walk_config().mppi.iterations
+    example = _example("torch_closed_loop_walk")
+    iters = example.mpc_config().mppi.iterations
 
     def counted(tag, steps):
         got = (cuda_engine.launch_counts[ROLLOUT],
@@ -1774,21 +1754,28 @@ def phase_loop(rec):
         counts[ROLLOUT] = counts.get(ROLLOUT, 0) + got[0]
         return got[0]
 
-    # 1. the walk
+    # 1. the walk, through the example's main
     cuda_engine.reset_launch_counts()
-    walk, carry, phys = run_walk(dev, WALK_STEPS)
+    walk = example.main(WALK_STEPS, WALK_SPEED, device=dev, seed=0)
     n = counted("closed_loop", WALK_STEPS)
+    walk_check(walk)
+    carry, phys = walk.pop("carry"), walk.pop("phys")
+    for name in ("ctrls", "sens", "costs"):
+        walk.pop(name)
     walk["period_s"] = walk["wall_s"] / WALK_STEPS
-    log(f"loop: closed_loop {WALK_STEPS} steps, {n} fused_rollout_cost "
-        f"launches, 0 substep launches; {walk['period_s']:.4f} s per control "
-        f"period (host clock, one synchronise at the end); card: "
-        f"{rec['card']}")
+    log(f"loop: torch_closed_loop_walk.main: closed_loop {WALK_STEPS} steps "
+        f"in {walk['wall_s']:.1f} s, {n} fused_rollout_cost launches, 0 "
+        f"substep launches; {walk['period_s']:.4f} s per control period "
+        f"(host clock, one synchronise at the end); traveled "
+        f"({walk['forward_m']:+.4f}, {walk['sideways_m']:+.4f}) m, "
+        f"uprightness min {walk['upright_min']:.4f}; card: {rec['card']}")
     rec["walk"] = walk
 
     # 2. the delayed loop from the same start, oracle plant and lane plant
     rec["delayed"] = {}
     for plant_engine in ("aos", "lane"):
-        pm, plant, cfg, cost_fn, cmd, carry0, phys0 = walk_setup(dev, seed=1)
+        pm, plant, cfg, cost_fn, cmd, carry0, phys0 = example.setup(
+            dev, 1, WALK_SPEED)
         cuda_engine.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1817,7 +1804,7 @@ def phase_loop(rec):
 
     # 3. the period's parts, each followed by a synchronise, going on from
     # where the walk ended (not part of the counted run)
-    pm, plant, cfg, cost_fn, cmd, _, _ = walk_setup(dev, seed=0)
+    pm, plant, cfg, cost_fn, cmd, _, _ = example.setup(dev, 0, WALK_SPEED)
     parts = {"plan_and_act": [], "oracle_control_step": [],
              "lane_control_step": []}
     lane_phys = phys
@@ -1951,8 +1938,10 @@ def phase_train(rec):
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         # (a) two iterations at the defaults, then a resume with one more
-        # and one of fine-tune
-        run_dir = os.path.join(tmp, "run")
+        # and one of fine-tune; the run's folder is kept for the tools
+        # phase (its checkpoint and reward CSV)
+        run_dir = os.path.join(rec["tmp"], "train_run")
+        rec["train_run"] = run_dir
         cuda_engine.reset_launch_counts()
         # (cut from 2 + 1 + 1 updates: the fine-tune update resumes too)
         ts, its = train_run(rec, run_dir, TRAIN_ARGS + ["--iterations", "1"],
@@ -2236,16 +2225,27 @@ def phase_eval(rec):
         f"{rec['card']}")
 
 
-def _example(name):
-    """The module ``examples/<name>.py`` (the examples are scripts, not a
-    package)."""
+def _load(folder, name):
+    """The module ``<folder>/<name>.py`` of the repo (the examples and
+    scripts are files, not a package), loaded once."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        name, os.path.join(REPO, "examples", name + ".py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    key = f"{folder}.{name}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            key, os.path.join(REPO, folder, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[key] = mod
+    return sys.modules[key]
+
+
+def _example(name):
+    return _load("examples", name)
+
+
+def _script(name):
+    return _load("scripts", name)
 
 
 def gait_run(rec, gait, tmp, solver, iters, extra=()):
@@ -2451,6 +2451,346 @@ def phase_grad(rec):
         f"{rec['card']}")
 
 
+def tools_counts(rec, tag, want):
+    """B1 launches since the last reset (substep launches must be none),
+    held to ``want``; added to the kernels line's count and reset."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    got = (cuda_engine.launch_counts[ROLLOUT],
+           cuda_engine.launch_counts[SUBSTEP])
+    if got != (want, 0):
+        raise AssertionError(f"tools {tag}: {got[0]} fused and {got[1]} "
+                             f"substep launches (want {want} and 0)")
+    counts = rec.setdefault("launches", {})
+    counts[ROLLOUT] = counts.get(ROLLOUT, 0) + want
+    rec["tools"].setdefault("launches", {})[tag] = want
+    cuda_engine.reset_launch_counts()
+
+
+def trace_b1(trace_dir) -> int:
+    """One B1 launch at the main width (after one untraced warm-up launch)
+    under ``profiling.trace`` into ``trace_dir``; prints a JSON line with
+    the card's activities the trace saw. ``tools_measure`` runs it in a
+    process of its own: late in this script's process, after the earlier
+    phases' profiler sessions, the trace of one launch saw 13, 4 and 0 of
+    its kernels and copies in runs of the same code on the H100."""
+    from torch.autograd import DeviceType
+
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics.engine import make_state
+    from quadruped_gym_tpu_torch.utils import profiling
+
+    dev, dt = torch.device("cuda"), torch.float32
+    m = spec.get_planning_model()
+    it, lsi = BUDGET["planning"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    state = make_state(m, dtype=dt, device=dev)
+    cmd, prev = command(dt, dev), prev_ctrl(dt, dev)
+    seqs = random_seqs(gen, S_MAIN, H_MAIN, dt, dev, 0.2)
+    cuda_engine.fused_rollout_cost(m, state, seqs, cmd, prev, FRAME_SKIP,
+                                   it, lsi)
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir) as prof:
+        cuda_engine.fused_rollout_cost(m, state, seqs, cmd, prev, FRAME_SKIP,
+                                       it, lsi)
+    on_card = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    print(json.dumps({
+        "device_activities": len(on_card),
+        "rollout_kernels": sum("fused_rollout_kernel" in ev.name
+                               for ev in on_card),
+        "launches": cuda_engine.launch_counts[ROLLOUT]}))
+    return 0
+
+
+def tools_measure(rec, out):
+    """(a) ``profiling.measure`` of B1 at the main width, held against its
+    roofline (``torch_kernel_roofline.kernel_cost``: the plain version's
+    operations by ``profiling.cost_summary``, the fused kernel's true
+    bytes); one launch traced into ``chiprun_out/`` by ``trace_b1`` in a
+    process of its own, which must see the kernel on the card."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics.engine import make_state
+    from quadruped_gym_tpu_torch.utils import profiling
+
+    dev, dt = torch.device("cuda"), torch.float32
+    m = spec.get_planning_model()
+    it, lsi = BUDGET["planning"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    state = make_state(m, dtype=dt, device=dev)
+    cmd, prev = command(dt, dev), prev_ctrl(dt, dev)
+    seqs = random_seqs(gen, S_MAIN, H_MAIN, dt, dev, 0.2)
+
+    def b1(s):
+        return cuda_engine.fused_rollout_cost(m, state, s, cmd, prev,
+                                              FRAME_SKIP, it, lsi)
+
+    cost, unfused_step = _script("torch_kernel_roofline").kernel_cost(
+        m, S_MAIN, H_MAIN, (it, lsi))
+    ops_step = cost.flops / (S_MAIN * H_MAIN)
+    nbytes = int(cost.bytes_accessed)
+    meas = profiling.measure(b1, seqs, iters=TOOLS_MEASURE_ITERS, cost=cost)
+    sol = meas.speed_of_light
+    trace_dir = os.path.join(REPO, "chiprun_out", "tools_trace_b1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         f"sys.exit(chip_smoke.trace_b1({trace_dir!r}))"],
+        cwd=REPO, capture_output=True, text=True, timeout=TRACE_TIMEOUT_S)
+    trace_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"tools (a): the traced launch's process "
+                             f"exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    if seen["launches"] != 2 or not seen["rollout_kernels"]:
+        raise AssertionError(f"tools (a): the trace saw no B1 kernel on "
+                             f"the card ({seen})")
+    out["measure"] = {
+        "wall_s": meas.wall_s, "speed_of_light": sol,
+        "bound_s": cost.roofline_s, "bound": cost.bound,
+        "ops_per_rollout_step": ops_step, "true_bytes": nbytes,
+        "unfused_bytes_per_rollout_step": unfused_step,
+        "trace_dir": trace_dir,
+        "trace_device_activities": seen["device_activities"],
+        "trace_rollout_kernels": seen["rollout_kernels"],
+        "trace_process_s": trace_s}
+    log(f"tools (a) profiling.measure B1: planning {it}/{lsi}, S={S_MAIN}, "
+        f"H={H_MAIN}, float32: {1e3 * meas.wall_s:.3f} ms a call (host "
+        f"clock, {TOOLS_MEASURE_ITERS} calls, synchronised around them); "
+        f"roofline {1e3 * cost.roofline_s:.3f} ms ({cost.bound}-bound: "
+        f"{ops_step:.0f} ops a rollout step from cost_summary = "
+        f"rollout_flops; {nbytes} true bytes); speed_of_light "
+        f"{100 * sol:.2f} % (PERF.md §6: 16.41 % from count_ops over CUDA "
+        f"events); the plain version's unfused traffic "
+        f"{unfused_step:.0f} B a rollout step (an upper bound "
+        f"the kernel does not move); trace {trace_dir} "
+        f"({seen['device_activities']} device activities, "
+        f"{seen['rollout_kernels']} of them B1; its own process, "
+        f"{trace_s:.1f} s); card: {rec['card']}")
+    return 1 + TOOLS_MEASURE_ITERS
+
+
+def phase_tools(rec):
+    """The ported examples and scripts of the JAX package on the card,
+    through their own entry points, and the native library."""
+    from quadruped_gym_tpu_torch import native
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.rl import evaluate
+    from quadruped_gym_tpu_torch.runtime import checkpoint
+    from quadruped_gym_tpu_torch.tasks import walking
+    from quadruped_gym_tpu_torch.tasks.rewards import REWARD_KEYS
+    from quadruped_gym_tpu_torch.utils.metrics import read_reward_csv
+
+    dev = torch.device("cuda")
+    out = rec["tools"] = {}
+    tmp = os.path.join(rec["tmp"], "tools")
+    os.makedirs(tmp)
+    cuda_engine.reset_launch_counts()
+
+    # (a) profiling.measure of B1 at the main width
+    tools_counts(rec, "measure", tools_measure(rec, out))
+
+    # (b) the scenario sweep: one B1 launch with DomainParams, twice
+    sweep = _example("torch_scenario_sweep").main(SWEEP_S, device=dev,
+                                                  seed=SWEEP_SEED)
+    costs = sweep.pop("costs")
+    if costs.shape != (SWEEP_S,) or not np.isfinite(costs).all():
+        raise AssertionError("tools (b): sweep costs of a wrong shape or "
+                             "not finite")
+    out["sweep"] = dict(sweep, cost_mean=float(costs.mean()),
+                        cost_min=float(costs.min()),
+                        cost_max=float(costs.max()))
+    tools_counts(rec, "sweep", 2)
+    log(f"tools (b) torch_scenario_sweep.main({SWEEP_S}): first "
+        f"{sweep['first_s']:.3f} s, warm {1e3 * sweep['warm_s']:.3f} ms = "
+        f"{sweep['rollouts_per_s']:.1f} scenario-rollouts/s (H=50, 4/8, "
+        f"DomainParams with terrain; host clock, synchronised); costs mean "
+        f"{costs.mean():.2f}, best {costs.min():.2f}, worst "
+        f"{costs.max():.2f}; halves (low/high) "
+        + ", ".join(f"{k} {a:.2f}/{b:.2f}"
+                    for k, (a, b) in sweep["halves"].items())
+        + f"; card: {rec['card']}")
+
+    # (c) the roofline script: the saturation curve and the bounds
+    roof_mod = _script("torch_kernel_roofline")
+    roof = roof_mod.main([
+        "--reps", str(ROOFLINE_REPS), "--seed", "11",
+        "--out", os.path.join(tmp, "roofline.json"),
+        "--trace", os.path.join(tmp, "roofline_trace")])
+    curve = roof["saturation_curve"]
+    if not all(np.isfinite(r["device_s"]) and r["device_s"] > 0
+               for r in curve):
+        raise AssertionError("tools (c): a non-finite time on the curve")
+    out["roofline"] = roof
+    tools_counts(rec, "roofline",
+                 len(curve) * (1 + ROOFLINE_REPS) + 2)
+    b = roof["bounds_at_best"]
+    log(f"tools (c) torch_kernel_roofline (reps {ROOFLINE_REPS}, CUDA "
+        f"events, median): "
+        + ", ".join(f"S={r['samples']} {1e3 * r['device_s']:.3f} ms = "
+                    f"{r['rollouts_per_s']:.1f}/s" for r in curve)
+        + f"; best S={roof['best']['samples']}: "
+        f"{100 * b['flop_fraction_of_f32_peak']:.2f} % of the FP32 peak, "
+        f"{100 * b['hbm_fraction_true_traffic']:.4f} % of HBM on the true "
+        f"{b['true_hbm_bytes_per_solve']} B; kernel "
+        f"{roof['kernel'].get('registers')} registers, "
+        f"{roof['kernel'].get('local_bytes')} B local, "
+        f"{roof['kernel'].get('blocks_per_sm')} blocks/SM; card: "
+        f"{rec['card']}")
+
+    # (d) the random rollout: 50 oracle substeps on mpc_plant
+    t0 = time.perf_counter()
+    rr = _example("torch_random_rollout").main([
+        "--seconds", str(RANDOM_ROLLOUT_S),
+        "--plot", os.path.join(tmp, "joint_angles.png")])
+    wall = time.perf_counter() - t0
+    n_sub = rr["sensors"].shape[0]
+    if rr["sensors"].shape != (int(round(RANDOM_ROLLOUT_S / 0.002)), 33) \
+            or not np.isfinite(rr["sensors"]).all():
+        raise AssertionError("tools (d): random rollout sensors of a wrong "
+                             "shape or not finite")
+    out["random_rollout"] = {"substeps": n_sub, "wall_s": wall,
+                             "final_height": rr["final_height"]}
+    tools_counts(rec, "random_rollout", 0)
+    log(f"tools (d) torch_random_rollout --seconds {RANDOM_ROLLOUT_S}: "
+        f"{n_sub} oracle substeps (mpc_plant, 12 contacts, 4 passes, "
+        f"float32) in {wall:.2f} s = {1e3 * wall / n_sub:.2f} ms a substep "
+        f"(host clock, the plot included); final base height "
+        f"{rr['final_height']:.4f} m; card: {rec['card']}")
+
+    # (e) the latency demo: the controller on the card, the plant process
+    # on the CPU over the shm bus
+    t0 = time.perf_counter()
+    lat = _example("torch_latency_demo").main(
+        LATENCY_ARGS + ["--out", os.path.join(tmp, "latency.json")])
+    wall = time.perf_counter() - t0
+    loop = lat["two_process_loop"]
+    k = lat["pipelined_solve"]["k"]
+    if not (np.isfinite(lat["sync_solve"]["p50_ms"])
+            and np.isfinite(lat["pipelined_solve"]["amortized_ms"])
+            and loop["periods"] > 0 and loop["plant_stdout"]):
+        raise AssertionError("tools (e): latency report incomplete")
+    out["latency"] = dict(lat, wall_s=wall)
+    tools_counts(rec, "latency", 1 + 2 * k + loop["periods"])
+    log(f"tools (e) torch_latency_demo {' '.join(LATENCY_ARGS)}: sync solve "
+        f"p50 {lat['sync_solve']['p50_ms']:.2f} ms, p90 "
+        f"{lat['sync_solve']['p90_ms']:.2f} ms; pipelined "
+        f"{lat['pipelined_solve']['amortized_ms']:.2f} ms a solve (K={k}); "
+        f"launch + synchronise overhead "
+        f"{lat['launch_sync_overhead_ms_estimate']:.2f} ms; loop p50 "
+        f"{loop['p50_ms']:.2f} ms over {loop['periods']} periods, "
+        f"{loop['deadline_misses']} deadline misses of "
+        f"{loop['deadline_ms']:.0f} ms; plant: {loop['plant_stdout']}; the "
+        f"call {wall:.1f} s; card: {rec['card']}")
+
+    # (f) the eval report on the committed policy, cut in time
+    t0 = time.perf_counter()
+    report = _script("torch_eval_report").main([
+        "--policy", POLICY, "--out", os.path.join(tmp, "eval"),
+        "--seeds", "0", "--max-time", str(TOOLS_EVAL_MAX_TIME)])
+    wall = time.perf_counter() - t0
+    eps = report["episodes"]
+    if len(eps) != 2 or not all(np.isfinite(e["episode_return"])
+                                for e in eps):
+        raise AssertionError("tools (f): eval report incomplete")
+    out["eval_report"] = {"episodes": eps, "wall_s": wall}
+    tools_counts(rec, "eval_report", 0)
+    log(f"tools (f) torch_eval_report --seeds 0 --max-time "
+        f"{TOOLS_EVAL_MAX_TIME}: "
+        + ", ".join(f"{e['mode']} return {e['episode_return']:.3f} in "
+                    f"{e['steps']} steps" for e in eps)
+        + f"; the call {wall:.1f} s; card: {rec['card']}")
+
+    # (g) the export of a trainer checkpoint, read back bit for bit
+    run = rec.get("train_run")
+    if run is None:  # the train phase did not run: a short run of its own
+        from quadruped_gym_tpu_torch.rl import train
+
+        run = os.path.join(tmp, "train_run")
+        train.main(["--output", run, "--iterations", "1", "--num-envs",
+                    "64", "--num-steps", "2", "--timesteps-per-iteration",
+                    "128", "--no-eval"])
+    ckpt = os.path.join(run, "policy")
+    params = os.path.join(tmp, "policy_params")
+    _script("torch_export_policy").main(["--ckpt", ckpt, "--out", params])
+    arrays, step = checkpoint.read(ckpt)
+    exported, step2 = checkpoint.read(params)
+    obs_dim = walking.obs_size(walking.WalkingConfig(obs_window=10,
+                                                     partial_obs=True),
+                               spec.get_mpc_plant_model())
+    net = evaluate.load_policy(params, obs_dim, dev)
+    if step2 != step or len(exported) != len(net.state_dict()) or not all(
+            np.array_equal(exported[f"leaf_{i}"], arrays[f"leaf_{i}"])
+            for i in range(len(exported))):
+        raise AssertionError("tools (g): the export is not the trainer's "
+                             "network")
+    for i, v in enumerate(net.state_dict().values()):
+        if not np.array_equal(v.cpu().numpy(), arrays[f"leaf_{i}"]):
+            raise AssertionError("tools (g): the exported policy does not "
+                                 "load back bit for bit")
+    out["export"] = {"leaves": len(exported), "step": step}
+    tools_counts(rec, "export", 0)
+    log(f"tools (g) torch_export_policy: {len(exported)} leaves at "
+        f"iteration {step} from the trainer's checkpoint, loaded back on the "
+        f"card through rl.evaluate.load_policy equal in every bit")
+
+    # (h) the native logger: built, 20,000 rows, and the trainer's CSV
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("tools (h): the native library did not build")
+    rows = np.random.RandomState(0).randn(NATIVE_ROWS, len(REWARD_KEYS))
+    path = os.path.join(tmp, "native.csv")
+    t0 = time.perf_counter()
+    lg = native.NativeRewardLogger(path, REWARD_KEYS)
+    lg.log_many(0, rows)
+    lg.flush()
+    dropped = lg.dropped
+    lg.close()
+    wall = time.perf_counter() - t0
+    steps, _, comp, _ = read_reward_csv(path)
+    if dropped != 0 or list(steps) != list(range(NATIVE_ROWS)) or \
+            not np.allclose(comp, rows, rtol=1e-9, atol=0):
+        raise AssertionError(f"tools (h): native logger dropped {dropped} "
+                             "rows or wrote other values")
+    csv_path = os.path.join(run, "rewards_continuous.csv")
+    if not native_written(csv_path):
+        raise AssertionError("tools (h): the trainer's CSV was not written "
+                             "by the native logger")
+    out["native"] = {"rows": NATIVE_ROWS, "dropped": dropped, "wall_s": wall,
+                     "library": native.library_path()}
+    tools_counts(rec, "native", 0)
+    log(f"tools (h) native: {native.library_path()} built and loaded; "
+        f"NativeRewardLogger {NATIVE_ROWS} rows in {1e3 * wall:.1f} ms, "
+        f"dropped {dropped}; the trainer's CSV ({csv_path}) is the native "
+        f"writer's, byte for byte")
+    log(f"tools: {sum(out['launches'].values())} fused_rollout_cost launches "
+        f"({out['launches']}), 0 substep launches; card: {rec['card']}")
+
+
+def native_written(path) -> bool:
+    """Whether a reward CSV is the native writer's output, byte for byte:
+    its rows printed again from the values they hold, the step as
+    ``%llu`` and every number as ``%.10g`` (telemetry.cc), give the file.
+    The Python logger prints each number's full repr instead."""
+    with open(path) as f:
+        lines = f.read().split("\n")
+    if len(lines) < 3 or lines[-1] != "":
+        return False
+    for line in lines[1:-1]:
+        step, *nums = line.split(",")
+        again = ",".join([str(int(step))]
+                         + ["%.10g" % float(x) for x in nums])
+        if again != line:
+            return False
+    return True
+
+
 def traced(fn):
     """(device seconds, device activities, ``fn()``) under
     ``torch.profiler``: the summed durations and the number of the kernels
@@ -2559,7 +2899,7 @@ def phase_time_loop_shape(rec, gen, cmd, prev, iters=5):
     from quadruped_gym_tpu_torch.physics.engine import make_state
 
     dev, dt = torch.device("cuda"), torch.float32
-    walk = walk_config().mppi
+    walk = _example("torch_closed_loop_walk").mpc_config().mppi
     S, H, fs = walk.num_samples, walk.rollout.horizon, walk.rollout.frame_skip
     it, lsi = walk.lane_newton_iterations, walk.lane_ls_iterations
     m = spec.get_planning_model()
@@ -2699,13 +3039,14 @@ def main(argv=None) -> int:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rec = {}
-    phase_device(rec)
-    for name in PHASES[1:]:
-        if name in phases:
-            t0 = time.perf_counter()
-            globals()[f"phase_{name}"](rec)
-            log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = {"tmp": tmp}
+        phase_device(rec)
+        for name in PHASES[1:]:
+            if name in phases:
+                t0 = time.perf_counter()
+                globals()[f"phase_{name}"](rec)
+                log(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(rec, f, indent=1)

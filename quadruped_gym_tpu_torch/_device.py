@@ -1,6 +1,9 @@
-"""Device choice for the port's entry points: the card unless asked."""
+"""Device choice for the port's entry points (the card unless asked),
+and the card line their numbers carry."""
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -15,3 +18,21 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device; pass device='cpu' to run on the CPU explicitly")
     return torch.device("cuda")
+
+
+def card_line(device) -> str:
+    """The hardware a number measured on ``device`` comes from: for a CUDA
+    device, ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    (a card set below its maximum power runs slower under load, so a
+    number is kept only with the limit beside it: this raises where
+    nvidia-smi cannot say), else "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

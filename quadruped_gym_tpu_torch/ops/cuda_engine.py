@@ -718,23 +718,56 @@ def _op_count(func, args, out) -> int:
         f"aten op {name!r} is not classified for the operation count")
 
 
-def count_ops(fn, *args, **kwargs):
-    """(result, operations) of ``fn(*args, **kwargs)``, run eagerly on
-    the CPU under a dispatch mode that counts every aten op as the lists
-    above say. An op in no list raises, so none is left out unseen."""
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+
+
+def _byte_count(func, args, kwargs, out) -> int:
+    """Bytes an op reads and writes: each tensor input once, each output
+    once; an op whose outputs only alias its input (a view) moves none."""
+    rets = func._schema.returns
+    if func.overloadpacket.__name__ == "_unsafe_view" or (rets and all(
+            r.alias_info is not None and not r.alias_info.is_write
+            for r in rets)):
+        return 0
+    return sum(t.numel() * t.element_size()
+               for t in _tensors([args, list(kwargs.values()), out]))
+
+
+def count_cost(fn, *args, **kwargs):
+    """(result, operations, bytes) of ``fn(*args, **kwargs)``, run eagerly
+    under a dispatch mode that counts every aten op: operations as the
+    lists above say (an op in no list raises, so none is left out
+    unseen), bytes as ``_byte_count`` says. The bytes are an unfused
+    program's traffic, every intermediate written and read back: an
+    upper bound on what a fused kernel of the same function moves."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    count = [0]
+    count = [0, 0]
 
     class _Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
             count[0] += _op_count(func, args, out)
+            count[1] += _byte_count(func, args, kwargs, out)
             return out
 
     with _Count():
         result = fn(*args, **kwargs)
-    return result, count[0]
+    return result, count[0], count[1]
+
+
+def count_ops(fn, *args, **kwargs):
+    """(result, operations) of ``fn(*args, **kwargs)``, run eagerly on
+    the CPU under a dispatch mode that counts every aten op as the lists
+    above say. An op in no list raises, so none is left out unseen."""
+    result, ops, _ = count_cost(fn, *args, **kwargs)
+    return result, ops
 
 
 def rollout_flops(m: PhysicsModel, horizon: int, frame_skip: int,

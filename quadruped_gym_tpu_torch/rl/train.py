@@ -3,8 +3,10 @@
 Counterpart of ``quadruped_gym_tpu/rl/train.py``, with its flags and
 defaults and its workflow: an output folder holding
 ``rewards_continuous.csv`` (one row per policy step, the reference's
-schema), ``policy/`` (the train state and the iteration counter, saved
-every iteration, so a crashed run resumes where it stopped), ``plots/``
+schema, written by ``native.make_reward_logger``: the C++ ring logger, or
+the Python one where it cannot be built), ``policy/`` (the train state
+and the iteration counter, saved every iteration, so a crashed run
+resumes where it stopped), ``plots/``
 (per iteration, ``reward_plot_{i}.png`` and
 ``reward_components_{i}.html``), and, unless ``--no-eval``, one eval
 episode per iteration of the policy through the gym env
@@ -43,6 +45,7 @@ from typing import NamedTuple, Optional
 
 from .._device import resolve_device
 from ..models import spec
+from ..native import make_reward_logger
 from ..parallel import DATA_AXIS, make_mesh, multihost
 from ..parallel.mesh import group_scope
 from ..runtime import checkpoint
@@ -50,7 +53,7 @@ from ..tasks import commands, walking
 from ..tasks.rewards import REWARD_KEYS
 from ..utils import plot as plot_mod
 from ..utils import server
-from ..utils.metrics import RewardCSVLogger, read_reward_csv
+from ..utils.metrics import read_reward_csv
 from . import distributed, evaluate, ppo
 
 
@@ -177,7 +180,8 @@ def _train(args, device):
               flush=True)
 
     csv_path = os.path.join(out, "rewards_continuous.csv")
-    logger = RewardCSVLogger(csv_path, REWARD_KEYS) if lead else None
+    # the native C++ ring logger where g++ builds it, else the Python one
+    logger = make_reward_logger(csv_path, REWARD_KEYS) if lead else None
     if args.dashboard and lead:
         server.launch_dash(csv_path, block=False)
         print("dashboard on :8050", flush=True)

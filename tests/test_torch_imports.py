@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``,
-no ``examples/torch_*.py`` and not ``chip_smoke.py`` imports jax, optax,
+"""The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``
+(``native/`` included), no ``examples/torch_*.py``, no
+``scripts/torch_*.py`` and not ``chip_smoke.py`` imports jax, optax,
 mujoco or the JAX package. The check
 reads the sources' import statements; it imports nothing. And each package
 of the port re-exports what its JAX counterpart's ``__init__`` does, for
@@ -17,7 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(
     glob.glob(os.path.join(REPO, "quadruped_gym_tpu_torch", "**", "*.py"),
               recursive=True)
-) + sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py"))) + [
+) + sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py"))) \
+    + sorted(glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))) + [
     os.path.join(REPO, "chip_smoke.py")]
 FORBIDDEN = ("jax", "jaxlib", "optax", "mujoco", "quadruped_gym_tpu")
 
@@ -46,10 +48,31 @@ def test_sources_found():
                 "utils/plot", "utils/server", "solvers/ilqr", "solvers/sqp",
                 "runtime/config", "rl/distributed", "parallel/__init__",
                 "parallel/mesh", "parallel/multihost", "parallel/pipeline",
-                "parallel/sharded_mpc"):
+                "parallel/sharded_mpc", "utils/profiling", "native/__init__"):
         assert f"quadruped_gym_tpu_torch/{mod}.py" in names
-    for example in ("torch_gait_sqp", "torch_closed_loop_gradient"):
+    for example in ("torch_gait_sqp", "torch_closed_loop_gradient",
+                    "torch_closed_loop_walk", "torch_scenario_sweep",
+                    "torch_random_rollout", "torch_latency_demo"):
         assert f"examples/{example}.py" in names
+    for script in ("torch_eval_report", "torch_kernel_roofline",
+                   "torch_export_policy"):
+        assert f"scripts/{script}.py" in names
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Each module of the JAX package has a namesake in the port, but for
+    the MuJoCo-oracle helpers (``testing.py``: the port's tests use the
+    JAX package's) and the kernels' module (``ops/pallas_engine.py``,
+    whose counterpart is ``ops/cuda_engine.py``)."""
+    jax_root = os.path.join(REPO, "quadruped_gym_tpu")
+    port = {os.path.relpath(p, REPO).split("/", 1)[1] for p in SOURCES
+            if os.path.relpath(p, REPO).startswith("quadruped_gym_tpu_torch")}
+    missing = sorted(
+        os.path.relpath(p, jax_root)
+        for p in glob.glob(os.path.join(jax_root, "**", "*.py"),
+                           recursive=True)
+        if os.path.relpath(p, jax_root) not in port)
+    assert missing == ["ops/pallas_engine.py", "testing.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES,
