@@ -31,10 +31,12 @@ Phases, each of which raises on failure (nothing is caught):
    air, 1e-9) on ``mpc_plant`` and on ``full``; and against the leg
    engine on the card, float64, through ``lane_batched_rollout_cost``
    (``"lane"`` against ``"leg"``, ``mpc_plant``, H=2, 1e-8). B1 at the
-   parallel phase's batch width (S=4,096, H=50, 2/4, 2 m up) too, and at
+   parallel phase's batch width (S=4,096, H=50, 2/4, 2 m up) too, at
    the tools phase's: the scenario sweep's (S=16,384, 4/8, DomainParams
    with terrain at its ranges) and the latency demo's planner (S=1,024,
-   2/4), each grounded over one control step, float32.
+   2/4), and at the research phase's budget study's new model (the fast
+   plant with ``n_secondary`` 32, S=1,024, 2/4), each grounded over one
+   control step, float32.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -128,9 +130,12 @@ Phases, each of which raises on failure (nothing is caught):
    ``examples/torch_gait_sqp.py``'s ``main`` at its defaults (fast plant,
    H=50, frame_skip 5, 12 contacts, 4 Newton passes, the stance settled
    for 400 steps, the sine warm start) with SQP (1 of 10 iterations; it
-   must descend) and iLQR (1 iteration; never above its initial cost),
-   and one SQP iteration with ``--linearize fd``: costs, the seconds of
-   each part of an iteration, the re-rollout's walk;
+   must descend) and iLQR (1 iteration; never above its initial cost):
+   costs, the seconds of each part of an iteration, the re-rollout's walk
+   (no gait iteration with the FD linearization here: the research phase
+   runs ``fd_linearize`` on the fast plant at H=4 in float32, and the
+   check phase holds it, card against CPU, on the planning model in
+   float64);
    ``examples/torch_closed_loop_gradient.py``'s ``main`` with SQP and
    iLQR (1 of 100 control steps) and the plant's share of a period; 1
    step of ``delayed_closed_loop`` with SQP; one gait SQP iteration
@@ -158,13 +163,27 @@ Phases, each of which raises on failure (nothing is caught):
    ``NativeRewardLogger`` writes 20,000 rows and drops none, and the train
    phase's reward CSV is the native writer's byte for byte. Every cut is
    at ``TOOLS_MEASURE_ITERS`` ... ``TOOLS_EVAL_MAX_TIME`` below.
-14. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
+14. research: the JAX package's research scripts through the port's
+   ``main``s, float32, each cut at a ``RESEARCH_*`` constant below: (a)
+   ``scripts/torch_latency_parts.py`` (the oracle ``control_step`` at the
+   planner's and at the plant's budget, one MPPI solve over B1; K=2, one
+   repetition); (b) ``scripts/torch_latency_report.py``
+   (``delayed_closed_loop`` with the leg-engine plant at N = 2/3/4, one
+   timed call each after one warm-up, the line fit, the controller's work
+   and the 100 Hz split, B1 at S=4,096 against the lane route's operation
+   count; K=2, one repetition); (c) ``scripts/torch_latency_sweep.py``
+   (B1 at S = 1,024 ... 16,384, K=5), beside the tools phase's curve; (d)
+   ``scripts/torch_diag_gait.py`` at H=4, once with each linearization
+   (AD, then FD from the same cached stance; every stage finite); (e)
+   ``scripts/torch_full_plant_budget_study.py``, 30 steps a case (the
+   verdict reported, not gated; every case finite and upright).
+15. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
    solve, 5 solves after a warm-up); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 13 each set the launch counters to 0 just before driving
+Phases 4 to 14 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -186,11 +205,12 @@ import time
 import numpy as np
 import torch
 
-from quadruped_gym_tpu_torch._device import card_line
+from quadruped_gym_tpu_torch._device import card_line, repo_module
 from quadruped_gym_tpu_torch.utils.profiling import H100
 
 PHASES = ("device", "build", "check", "main", "plan", "env", "lane",
-          "parallel", "loop", "train", "eval", "grad", "tools", "time")
+          "parallel", "loop", "train", "eval", "grad", "tools", "research",
+          "time")
 S_MAIN = 65536
 H_MAIN = 50
 FRAME_SKIP = 5
@@ -256,13 +276,15 @@ EVAL_TRAIN_ARGS = ["--num-steps", "2", "--timesteps-per-iteration", "4096",
 GRAD_LIN_TOL = 1e-9
 GRAD_SQP_TOL = 1e-8
 # the grad phase: examples/torch_gait_sqp.py at its defaults (H=50,
-# frame_skip 5, fast plant, float32), cut from 10 iterations; one FD
-# iteration; examples/torch_closed_loop_gradient.py cut from 100 control
-# steps; the delayed loop with SQP. On the card every rollout of H=50
-# control steps takes ~15-18 s (250 host-bound substeps), and a solve
-# makes one per iteration plus its initial guess's.
+# frame_skip 5, fast plant, float32), cut from 10 iterations;
+# examples/torch_closed_loop_gradient.py cut from 100 control steps; the
+# delayed loop with SQP. On the card every rollout of H=50 control steps
+# takes ~15-18 s (250 host-bound substeps), and a solve makes one per
+# iteration plus its initial guess's. (A gait iteration with the FD
+# linearization, ~52 s, is no longer run: the research phase's diag_gait
+# runs fd_linearize on the fast plant in float32, and check_gradient holds
+# it, card against CPU, in float64.)
 GAIT_ITERS = {"sqp": 1, "ilqr": 1}
-GAIT_FD_ITERS = 1
 GRAD_LOOP_STEPS = 1
 GRAD_DELAYED_STEPS = 1
 # the lane engine on the card against the CPU, float64, one step at 4/8,
@@ -315,6 +337,25 @@ LATENCY_ARGS = ["--measure-iters", "5", "--seconds", "2",
                 "--settle-steps", "200"]
 TOOLS_EVAL_MAX_TIME = 0.06
 NATIVE_ROWS = 20000
+# the research phase (the JAX package's research scripts): (a) the latency
+# parts' K cut from 20 to 2 and their repetitions from 3 to 1 (the
+# plant-budget part runs all 100 Newton passes in float32 once the robot
+# is down: ~0.5 s a call); (b) the latency
+# report's closed loops cut from N = 25/50/100 x 5 repetitions (a period
+# with the leg-engine predictor and plant takes seconds) to N = 2/3/4 x 1
+# after one warm-up, its K-call timings from K=20 x 3 to K=2 x 1; (c) the
+# sweep's K cut from 20 to 5; (d) diag_gait's horizon cut from 12 to 4,
+# run with each linearization;
+# (e) the budget study cut from 200 to 30 steps a case
+RESEARCH_K = 2
+RESEARCH_PARTS_ARGS = ["--k", str(RESEARCH_K), "--reps", "1"]
+RESEARCH_REPORT_NS = (2, 3, 4)
+RESEARCH_REPORT_ARGS = ["--ns", *map(str, RESEARCH_REPORT_NS), "--loop-reps",
+                        "1", "--warm", "1", "--k", str(RESEARCH_K), "--reps",
+                        "1"]
+RESEARCH_SWEEP_K = 5
+RESEARCH_DIAG_H = 4
+RESEARCH_STUDY_STEPS = 30
 EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
              "final_tracking_error", "mean_uprightness", "command_speed",
              "iteration"}
@@ -433,12 +474,13 @@ def launch_report(rec):
 
 def check_case(rec, label, model, kind, S, H, fs, budget, dtype, tol,
                dp_ranges=None, seed=0):
-    """Kernel vs plain version on the card, on the same inputs."""
+    """Kernel vs plain version on the card, on the same inputs; ``model``
+    names a snapshot (``spec.SNAPSHOTS``)."""
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
     dev = torch.device("cuda")
-    m = getattr(spec, f"get_{model}_model")()
+    m = spec.get_snapshot(model)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -582,6 +624,9 @@ def phase_check(rec):
     walk = _example("torch_closed_loop_walk").mpc_config().mppi
     sweep = _example("torch_scenario_sweep")
     demo = _example("torch_latency_demo").mpc_config().mppi
+    # the research phase's budget study: the fast plant with its shin and
+    # ankle-servo hulls at 32 support directions, at the 2/4 budget
+    study = _script("torch_full_plant_budget_study").mpc_config(2, 4).mppi
     rec["max_abs_err_main_shape"] = max(
         check_case(rec, "f32 planning grounded (main-path width)",
                    "planning", "grounded", S_MAIN, 1, FRAME_SKIP,
@@ -615,6 +660,11 @@ def phase_check(rec):
                    demo.rollout.frame_skip,
                    (demo.lane_newton_iterations, demo.lane_ls_iterations),
                    f32, F32_TOL, seed=20),
+        check_case(rec, "f32 fast_plant_nsec32 grounded (budget study "
+                   "width)", "fast_plant_nsec32", "grounded",
+                   study.num_samples, 1, study.rollout.frame_skip,
+                   (study.lane_newton_iterations, study.lane_ls_iterations),
+                   f32, F32_TOL, seed=22),
     )
     # the substep kernel: float64 at B around 4,096 (one B that 128 does
     # not divide), then float32 at the widths of its two main paths
@@ -2225,27 +2275,12 @@ def phase_eval(rec):
         f"{rec['card']}")
 
 
-def _load(folder, name):
-    """The module ``<folder>/<name>.py`` of the repo (the examples and
-    scripts are files, not a package), loaded once."""
-    import importlib.util
-
-    key = f"{folder}.{name}"
-    if key not in sys.modules:
-        spec = importlib.util.spec_from_file_location(
-            key, os.path.join(REPO, folder, name + ".py"))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        sys.modules[key] = mod
-    return sys.modules[key]
-
-
 def _example(name):
-    return _load("examples", name)
+    return repo_module("examples", name)
 
 
 def _script(name):
-    return _load("scripts", name)
+    return repo_module("scripts", name)
 
 
 def gait_run(rec, gait, tmp, solver, iters, extra=()):
@@ -2296,7 +2331,7 @@ def gait_run(rec, gait, tmp, solver, iters, extra=()):
 def phase_grad(rec):
     """The gradient solvers through their two entry points on the card:
     gait SQP and iLQR at ``examples/gait_sqp.py``'s defaults (cut in
-    iterations), one FD SQP iteration, the receding-horizon loops of
+    iterations), the receding-horizon loops of
     ``examples/closed_loop_gradient.py`` (cut in steps), the delayed loop
     with SQP, and one gait SQP iteration traced in parts. No kernel runs
     on this path (the solvers step the oracle engine)."""
@@ -2311,20 +2346,18 @@ def phase_grad(rec):
     rec["grad"] = out
     cuda_engine.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        # 1-3. the gait optimizations (one settle, shared)
+        # 1-2. the gait optimizations (one settle, shared)
         t0 = time.perf_counter()
         out["sqp"] = gait_run(rec, gait, tmp, "sqp", GAIT_ITERS["sqp"])
         out["first_call_s"] = time.perf_counter() - t0
         if not out["sqp"]["final_cost"] < out["sqp"]["initial_cost"]:
             raise AssertionError("grad: gait SQP did not descend")
         out["ilqr"] = gait_run(rec, gait, tmp, "ilqr", GAIT_ITERS["ilqr"])
-        out["sqp_fd"] = gait_run(rec, gait, tmp, "sqp", GAIT_FD_ITERS,
-                                 ("--linearize", "fd", "--fd-eps", "3e-4"))
         log(f"grad gait: the first call (settle to stance, 400 steps at the "
             f"model's Newton budget, included) took {out['first_call_s']:.1f}"
             f" s; card: {rec['card']}")
 
-        # 4. the receding-horizon loops, then one period split into plan
+        # 3. the receding-horizon loops, then one period split into plan
         # and plant, a synchronise after each
         for solver in ("sqp", "ilqr"):
             argv = ["--solver", solver, "--steps", str(GRAD_LOOP_STEPS),
@@ -2374,7 +2407,7 @@ def phase_grad(rec):
             f"predictor auto = aos): {wall / GRAD_DELAYED_STEPS:.3f} s a "
             f"period; card: {rec['card']}")
 
-    # 5. one gait SQP iteration traced in parts: the linearization, the
+    # 4. one gait SQP iteration traced in parts: the linearization, the
     # cost expansion, the QP and the line search, around the settled
     # stance held over the horizon (the kernels do not depend on the
     # trajectory; a rollout of the warm start would cost ~15 s); the
@@ -2451,19 +2484,20 @@ def phase_grad(rec):
         f"{rec['card']}")
 
 
-def tools_counts(rec, tag, want):
+def tools_counts(rec, tag, want, phase="tools"):
     """B1 launches since the last reset (substep launches must be none),
-    held to ``want``; added to the kernels line's count and reset."""
+    held to ``want``; added to the kernels line's count and to
+    ``rec[phase]``'s, and reset."""
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
     got = (cuda_engine.launch_counts[ROLLOUT],
            cuda_engine.launch_counts[SUBSTEP])
     if got != (want, 0):
-        raise AssertionError(f"tools {tag}: {got[0]} fused and {got[1]} "
+        raise AssertionError(f"{phase} {tag}: {got[0]} fused and {got[1]} "
                              f"substep launches (want {want} and 0)")
     counts = rec.setdefault("launches", {})
     counts[ROLLOUT] = counts.get(ROLLOUT, 0) + want
-    rec["tools"].setdefault("launches", {})[tag] = want
+    rec[phase].setdefault("launches", {})[tag] = want
     cuda_engine.reset_launch_counts()
 
 
@@ -2771,6 +2805,168 @@ def phase_tools(rec):
         f"writer's, byte for byte")
     log(f"tools: {sum(out['launches'].values())} fused_rollout_cost launches "
         f"({out['launches']}), 0 substep launches; card: {rec['card']}")
+
+
+def phase_research(rec):
+    """The JAX package's research scripts on the card through the port's
+    ``main``s, each cut as the ``RESEARCH_*`` constants say, with the B1
+    launches each must make."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    out = rec["research"] = {}
+    tmp = os.path.join(rec["tmp"], "research")
+    os.makedirs(tmp)
+    cuda_engine.reset_launch_counts()
+
+    # (a) the latency parts: the solve part launches B1 once a call
+    parts_mod = _script("torch_latency_parts")
+    reps = parts_mod._parser().parse_args(RESEARCH_PARTS_ARGS).reps
+    t0 = time.perf_counter()
+    parts = parts_mod.main(RESEARCH_PARTS_ARGS)
+    wall = time.perf_counter() - t0
+    if not all(np.isfinite(p["ms"]) and p["ms"] > 0 for p in parts["parts"]):
+        raise AssertionError(f"research (a): a part's time {parts['parts']}")
+    out["parts"] = dict(parts, wall_s=wall)
+    tools_counts(rec, "parts", 1 + reps * RESEARCH_K, "research")
+    log(f"research (a) torch_latency_parts {' '.join(RESEARCH_PARTS_ARGS)}: "
+        + ", ".join(f"{p['part']} {p['ms']:.3f} ms" for p in parts["parts"])
+        + f"; sum {parts['sum_ms']:.3f} ms (host clock, K={parts['k']} calls "
+        f"a synchronise); the call {wall:.1f} s; card: {rec['card']}")
+
+    # (b) the latency report: the closed-loop fit, the controller's work
+    # and the 100 Hz split, B1 against the lane route's operations
+    t0 = time.perf_counter()
+    rep = _script("torch_latency_report").main(
+        RESEARCH_REPORT_ARGS + ["--out", os.path.join(tmp, "budget.json")])
+    wall = time.perf_counter() - t0
+    loop, split = rep["closed_loop_sim"], rep["split_100hz"]
+    roof = rep["fused_kernel_roofline"]
+    if not (all(np.isfinite(v) and v > 0 for v in loop["loop_s_by_N"].values())
+            and np.isfinite(loop["device_time_per_control_step_ms"])
+            and all(np.isfinite(split[k]) for k in ("predict_ms", "solve_ms",
+                                                    "plant_ms"))
+            and roof["analytic_flops"] > roof["rollout_flops"] > 0):
+        raise AssertionError("research (b): latency report incomplete")
+    out["report"] = dict(rep, wall_s=wall)
+    ns = RESEARCH_REPORT_NS
+    # one solve a period: the warm-up at the first N, one timed loop at
+    # each; the controller's, the solve's and B1's K calls (one repetition)
+    # each after an untimed one; one blocking solve, its warm-up and 3
+    # timed
+    tools_counts(rec, "report", ns[0] + sum(ns) + 3 * (1 + RESEARCH_K) + 4,
+                 "research")
+    ctl = rep["controller_realtime"]
+    fit = ", ".join(f"N={n} {t:.3f} s" for n, t in loop["loop_s_by_N"].items())
+    log(f"research (b) torch_latency_report {' '.join(RESEARCH_REPORT_ARGS)}"
+        f": T(N) {fit} -> slope "
+        f"{loop['device_time_per_control_step_ms']:.2f} ms a period, "
+        f"intercept {loop['dispatch_intercept_ms']:.2f} ms; controller "
+        f"{ctl['work_per_period_ms']:.2f} ms a period (predict "
+        f"{split['predict_ms']:.2f} + solve {split['solve_ms']:.2f}); 100 Hz "
+        f"split against {split['budget_ms']:.0f} ms: predict "
+        f"{split['predict_ms']:.2f}, solve {split['solve_ms']:.2f}, plant "
+        f"{split['plant_ms']:.2f} ms ({split['within_budget']}); trivial "
+        f"launch + synchronise "
+        f"{rep['launch_sync']['trivial_launch_sync_ms']:.4f} ms, one "
+        f"blocking solve {rep['launch_sync']['single_blocking_solve_ms']:.2f}"
+        f" ms; B1 at S={roof['samples']}: {1e3 * roof['wall_s']:.3f} ms = "
+        f"{roof['rollouts_per_s']:.1f} rollouts/s, "
+        f"{100 * roof['rollout_flops_fraction_of_f32_peak']:.2f} % of the "
+        f"FP32 peak on its plain version's (the leg engine's) "
+        f"{roof['rollout_flops']:.4e} operations (on the JAX script's "
+        f"unfused denominator, the lane route's "
+        f"{roof['analytic_flops']:.4e}: "
+        f"{100 * roof['mfu_fraction_of_f32_peak']:.2f} %); the call "
+        f"{wall:.1f} s; card: {rec['card']}")
+
+    # (c) the sweep, beside the tools phase's roofline curve
+    t0 = time.perf_counter()
+    sweep = _script("torch_latency_sweep").main(
+        ["--k", str(RESEARCH_SWEEP_K)])
+    wall = time.perf_counter() - t0
+    rows = sweep["rows"]
+    if not all(np.isfinite(r["per_solve_ms"]) and r["per_solve_ms"] > 0
+               for r in rows):
+        raise AssertionError("research (c): a non-finite time")
+    out["sweep"] = dict(sweep, wall_s=wall)
+    tools_counts(rec, "sweep", len(rows) * (1 + 3 * RESEARCH_SWEEP_K),
+                 "research")
+    curve = {r["samples"]: 1e3 * r["device_s"] for r in
+             rec.get("tools", {}).get("roofline", {}).get(
+                 "saturation_curve", [])}
+    log(f"research (c) torch_latency_sweep --k {RESEARCH_SWEEP_K} (host "
+        f"clock, median of 3): "
+        + ", ".join(f"S={r['samples']} {r['per_solve_ms']:.3f} ms "
+                    f"({r['grid']} x {r['threads']} threads"
+                    + (f"; roofline {curve[r['samples']]:.3f}"
+                       if r["samples"] in curve else "") + ")"
+                    for r in rows)
+        + f"; best S={sweep['best']['samples']} "
+        f"{sweep['best']['rollouts_per_s']:.1f} rollouts/s; the call "
+        f"{wall:.1f} s; card: {rec['card']}")
+
+    # (d) diag_gait: one SQP iteration in stages (the oracle engine), with
+    # each linearization; the FD run reuses the AD run's settled stance
+    for lin in ("ad", "fd"):
+        args = ["--horizon", str(RESEARCH_DIAG_H), "--linearize", lin]
+        t0 = time.perf_counter()
+        diag = _script("torch_diag_gait").main(args)
+        wall = time.perf_counter() - t0
+        bad = {k: s for k, s in diag["stats"].items()
+               if s["nan"] or s["inf"]}
+        if bad or not np.isfinite(diag["cost0"]) or not all(
+                np.isfinite(r["cost"]) for r in diag["line_search"]):
+            raise AssertionError(f"research (d) {lin}: non-finite stages "
+                                 f"{bad}")
+        key = f"diag_gait_{lin}"
+        out[key] = {k: v for k, v in diag.items() if k != "arrays"}
+        out[key]["wall_s"] = wall
+        tools_counts(rec, key, 0, "research")
+        log(f"research (d) torch_diag_gait {' '.join(args)} (fast plant, "
+            f"float32, eps {diag['eps']:g}): cost0 {diag['cost0']:.3f}; |A| "
+            f"{diag['stats']['A']['max_abs']:.3e}, |B| "
+            f"{diag['stats']['B']['max_abs']:.3e}, ||A_t...A_0|| "
+            f"{['%.1e' % n for n in diag['A_product_norms']]}; eig(Hqp) "
+            f"{diag['eig_min']:.3e} .. {diag['eig_max']:.3e} (cond "
+            f"{diag['cond']:.2e}); ||du|| {diag['du_norm']:.3e}, g'du "
+            f"{diag['pred_decrease']:.3e}; line search "
+            + ", ".join(f"{r['alpha']}: {r['cost']:.4f}"
+                        for r in diag["line_search"])
+            + "; stages " + ", ".join(f"{k} {v:.2f} s"
+                                      for k, v in diag["seconds"].items())
+            + f"; settle {diag['settle_s']:.1f} s; the call {wall:.1f} s; "
+            f"card: {rec['card']}")
+
+    # (e) the budget study, cut in steps: the verdict is reported, the
+    # cases must be finite and upright
+    study_mod = _script("torch_full_plant_budget_study")
+    t0 = time.perf_counter()
+    study = study_mod.main(["--steps", str(RESEARCH_STUDY_STEPS),
+                            "--out", os.path.join(tmp, "study.json")])
+    wall = time.perf_counter() - t0
+    for r in study["cases"]:
+        nums = [v for v in r.values() if isinstance(v, float)]
+        if not np.isfinite(nums).all() or r["flipped"] or \
+                r["min_uprightness"] <= WALK_LIMITS["upright"]:
+            raise AssertionError(f"research (e): case {r}")
+    out["study"] = dict(study, wall_s=wall)
+    # one launch an MPPI iteration, each step of each case
+    tools_counts(rec, "study", len(study_mod.CASES) * RESEARCH_STUDY_STEPS
+                 * study_mod.mpc_config(2, 4).mppi.iterations, "research")
+    v = study["verdict"]
+    log(f"research (e) torch_full_plant_budget_study --steps "
+        f"{RESEARCH_STUDY_STEPS}: "
+        + "; ".join(f"{r['budget']} nsec {r['n_secondary']}: vel error "
+                    f"{r['mean_vel_error']:.4f} m/s, forward "
+                    f"{r['forward_m']:+.4f} m, upright min "
+                    f"{r['min_uprightness']:.4f}, {r['wall_s']:.1f} s"
+                    for r in study["cases"])
+        + f"; verdict: spread {v['max_vel_error_spread_vs_4_8']:.4f} m/s, "
+        f"equivalent {v['equivalent']} (not gated at this depth); the call "
+        f"{wall:.1f} s; card: {rec['card']}")
+    log(f"research: {sum(out['launches'].values())} fused_rollout_cost "
+        f"launches ({out['launches']}), 0 substep launches; card: "
+        f"{rec['card']}")
 
 
 def native_written(path) -> bool:

@@ -1,9 +1,13 @@
 """Device choice for the port's entry points (the card unless asked),
-and the card line their numbers carry."""
+the card line their numbers carry, and the loader by which one entry
+point reaches another's helpers."""
 
 from __future__ import annotations
 
+import importlib.util
+import os
 import subprocess
+import sys
 
 import torch
 
@@ -36,3 +40,18 @@ def card_line(device) -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def repo_module(folder, name):
+    """The repo's ``<folder>/<name>.py`` (an example or a script: the
+    folders are not packages) as the module ``<folder>.<name>``, loaded
+    once."""
+    key = f"{folder}.{name}"
+    if key not in sys.modules:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        spec = importlib.util.spec_from_file_location(
+            key, os.path.join(repo, folder, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[key]

@@ -2,10 +2,11 @@
 
 Counterpart of ``quadruped_gym_tpu/models/spec.py``. The JAX package
 compiles the MJCF with MuJoCo at build time; this package carries no
-MuJoCo, so the four models it needs are stored as snapshots of the JAX
+MuJoCo, so the five models it needs are stored as snapshots of the JAX
 package's ``get_planning_model()``, ``get_fast_plant_model()``,
-``get_model(collision_geom_prefixes=MPC_COLLISION_PREFIXES)`` and
-``get_model()`` (``assets/{planning,fast_plant,mpc_plant,full}.npz``).
+``get_model(collision_geom_prefixes=MPC_COLLISION_PREFIXES)``,
+``get_model()`` and ``get_fast_plant_model(n_secondary=32)``
+(``assets/{planning,fast_plant,mpc_plant,full,fast_plant_nsec32}.npz``).
 Regenerate them, where MuJoCo and the JAX package are installed, with::
 
     python scripts/snapshot_torch_models.py
@@ -251,10 +252,22 @@ def get_planning_model() -> PhysicsModel:
     return _cached("planning")
 
 
-def get_fast_plant_model() -> PhysicsModel:
+# the fast plant's shin/ankle-servo decimations that have a snapshot
+FAST_PLANT_SNAPSHOTS = {64: "fast_plant", 32: "fast_plant_nsec32"}
+
+
+def get_fast_plant_model(n_secondary: int = 64) -> PhysicsModel:
     """Feet + shins + ankle servos with decimated hulls (snapshot of the
-    JAX package's ``get_fast_plant_model()``)."""
-    return _cached("fast_plant")
+    JAX package's ``get_fast_plant_model(n_secondary=n_secondary)``: the
+    feet at 128 support directions, the shins and ankle servos at
+    ``n_secondary``). 64 (the default) and 32 have snapshots; another
+    value needs one written by ``scripts/snapshot_torch_models.py``."""
+    if n_secondary not in FAST_PLANT_SNAPSHOTS:
+        raise ValueError(
+            f"no fast-plant snapshot with n_secondary={n_secondary!r} (there "
+            f"are {sorted(FAST_PLANT_SNAPSHOTS)}); write one with "
+            "scripts/snapshot_torch_models.py")
+    return _cached(FAST_PLANT_SNAPSHOTS[n_secondary])
 
 
 def get_mpc_plant_model() -> PhysicsModel:
@@ -270,7 +283,8 @@ def get_full_model() -> PhysicsModel:
     return _cached("full")
 
 
-SNAPSHOTS = ("planning", "fast_plant", "mpc_plant", "full")
+SNAPSHOTS = ("planning", "fast_plant", "mpc_plant", "full",
+             "fast_plant_nsec32")
 
 
 def get_snapshot(name: str) -> PhysicsModel:

@@ -675,9 +675,10 @@ def control_step(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
 
 
 # aten ops that compute, by how they are counted. An op is counted at one
-# operation per output element (compares and selects included), one or
-# two per input element for a reduction (a norm squares and adds), and
-# 2 K per output element for a contraction
+# operation per output element (compares and selects included; three for
+# a cross product's two products and difference), one or two per input
+# element for a reduction (a norm squares and adds), one per added
+# element for a scatter-add, and 2 K per output element for a contraction
 # of inner size K: an FMA is two operations, as the card's FP32 peak
 # counts it. Transcendentals count one, though the card spends more on
 # them, so the count stays a lower bound on the work.
@@ -687,8 +688,10 @@ _ELEMENTWISE = frozenset({
     "sign", "floor", "clamp", "clamp_min", "clamp_max", "minimum", "maximum",
     "where", "lt", "le", "gt", "ge", "eq", "ne", "bitwise_and",
     "bitwise_or", "bitwise_not", "logical_and", "logical_or", "logical_not"})
+_PER_OUTPUT = {"linalg_cross": 3}
 _REDUCTIONS = {"sum": 1, "prod": 1, "mean": 1, "amax": 1, "amin": 1,
-               "linalg_vector_norm": 2}
+               "argmax": 1, "argmin": 1, "linalg_vector_norm": 2}
+_SCATTER_ADDS = frozenset({"index_add"})
 _CONTRACTIONS = frozenset({"dot", "mv", "mm", "bmm"})
 # aten ops that only make, move or reinterpret data: no operations
 _DATA = frozenset({
@@ -699,7 +702,7 @@ _DATA = frozenset({
     "lift_fresh", "lift_fresh_copy", "scalar_tensor", "_local_scalar_dense",
     "empty", "empty_like", "zeros", "zeros_like", "ones", "ones_like",
     "full", "full_like", "fill", "new_zeros", "new_full", "new_empty",
-    "arange", "repeat"})
+    "arange", "repeat", "diagonal", "index_copy"})
 
 
 def _op_count(func, args, out) -> int:
@@ -710,8 +713,12 @@ def _op_count(func, args, out) -> int:
             if isinstance(o, torch.Tensor)]
     if name in _ELEMENTWISE:
         return sum(o.numel() for o in outs)
+    if name in _PER_OUTPUT:
+        return _PER_OUTPUT[name] * sum(o.numel() for o in outs)
     if name in _REDUCTIONS:
         return _REDUCTIONS[name] * args[0].numel()
+    if name in _SCATTER_ADDS:  # (self, dim, index, source)
+        return args[3].numel()
     if name in _CONTRACTIONS:
         return 2 * args[0].shape[-1] * outs[0].numel()
     raise NotImplementedError(

@@ -16,6 +16,8 @@ collectives move little next to the rollouts.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 
@@ -135,6 +137,10 @@ def sharded_batch_mppi_plan(
         shifted.append(torch.cat([mean[1:], mean[-1:]], dim=0))
         best.append(cmin)
     return torch.stack(ctrls), torch.stack(shifted), torch.stack(best)
+
+
+class ShardedBatchResult(NamedTuple):
+    costs: torch.Tensor  # (S/n,): this rank's slice of the sample axis
 
 
 def sharded_rollout_costs(

@@ -55,8 +55,32 @@ def test_sources_found():
                     "torch_random_rollout", "torch_latency_demo"):
         assert f"examples/{example}.py" in names
     for script in ("torch_eval_report", "torch_kernel_roofline",
-                   "torch_export_policy"):
+                   "torch_export_policy", "torch_latency_parts",
+                   "torch_latency_report", "torch_latency_sweep",
+                   "torch_diag_gait", "torch_full_plant_budget_study"):
         assert f"scripts/{script}.py" in names
+
+
+def test_every_jax_entry_point_has_its_counterpart():
+    """Each script and example that imports the JAX package has a
+    ``torch_`` namesake in its folder, but for ``calibrate_contacts.py``,
+    which drives MuJoCo to calibrate the contact parameters the port's
+    snapshots carry, and the port's own ``snapshot_torch_*`` scripts,
+    which write its references from the JAX package."""
+    missing = []
+    for folder in ("scripts", "examples"):
+        for path in sorted(glob.glob(os.path.join(REPO, folder, "*.py"))):
+            name = os.path.basename(path)
+            if (name.startswith(("torch_", "snapshot_torch_"))
+                    or name == "calibrate_contacts.py"):
+                continue
+            if "quadruped_gym_tpu" not in set(_imported(path)) | {
+                    n.split(".")[0] for n in _imported(path)}:
+                continue
+            if not os.path.exists(os.path.join(REPO, folder,
+                                               "torch_" + name)):
+                missing.append(f"{folder}/{name}")
+    assert missing == []
 
 
 def test_every_jax_module_has_its_counterpart():

@@ -16,7 +16,7 @@ from quadruped_gym_tpu_torch.models import spec as tspec
 from quadruped_gym_tpu_torch.tasks import commands as tcommands
 from quadruped_gym_tpu_torch.tasks import rewards as trewards
 
-MODELS = ("planning", "fast_plant", "mpc_plant", "full")
+MODELS = ("planning", "fast_plant", "mpc_plant", "full", "fast_plant_nsec32")
 # how the JAX package builds the model each snapshot holds
 JAX_MODELS = {
     "planning": jspec.get_planning_model,
@@ -24,11 +24,12 @@ JAX_MODELS = {
     "mpc_plant": lambda: jspec.get_model(
         collision_geom_prefixes=jspec.MPC_COLLISION_PREFIXES),
     "full": jspec.get_model,
+    "fast_plant_nsec32": lambda: jspec.get_fast_plant_model(n_secondary=32),
 }
 
 
 def _pair(name):
-    return JAX_MODELS[name](), getattr(tspec, f"get_{name}_model")()
+    return JAX_MODELS[name](), tspec.get_snapshot(name)
 
 
 def _assert_field_equal(name, a, b):
@@ -66,8 +67,7 @@ def test_collision_sets():
     assert tspec.FEET_COLLISION_PREFIXES == jspec.FEET_COLLISION_PREFIXES
     sizes = {name: (len(m.col_hull_verts),
                     sum(len(v) for v in m.col_hull_verts))
-             for name, m in ((n, getattr(tspec, f"get_{n}_model")())
-                             for n in MODELS)}
+             for name, m in ((n, tspec.get_snapshot(n)) for n in MODELS)}
     assert sizes["mpc_plant"] == (12, 2272)
     assert sizes["full"] == (25, 6256)
     assert sizes["planning"][0] == 4 and sizes["fast_plant"][0] == 12
@@ -75,6 +75,29 @@ def test_collision_sets():
     assert all(n.startswith(tspec.MPC_COLLISION_PREFIXES)
                for n in plant.col_geom_names)
     assert tspec.get_full_model() is tspec.get_full_model()  # loaded once
+
+
+def test_fast_plant_decimations():
+    """``n_secondary`` picks the snapshot: 32 shrinks only the ankle-servo
+    hulls (47 -> 18 vertices); the feet and shins keep theirs, and so the
+    contact slots a leg and the kernels' launch geometry stay."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    m64, m32 = (tspec.get_fast_plant_model(n_secondary=n) for n in (64, 32))
+    assert m64 is tspec.get_fast_plant_model()
+    assert m32 is tspec.get_snapshot("fast_plant_nsec32")
+    counts = {n: [len(v) for v in m.col_hull_verts]
+              for n, m in ((64, m64), (32, m32))}
+    for name, a, b in zip(m64.col_geom_names, counts[64], counts[32]):
+        want = (47, 18) if name.startswith("ankle_servo") else (a, a)
+        assert (a, b) == want, name
+    assert cuda_engine.slot_budgets(m32) == cuda_engine.slot_budgets(m64)
+    assert (cuda_engine.launch_geometry(cuda_engine.model_slots(m32),
+                                        torch.float32, 1024)
+            == cuda_engine.launch_geometry(cuda_engine.model_slots(m64),
+                                           torch.float32, 1024))
+    with pytest.raises(ValueError, match="snapshot_torch_models"):
+        tspec.get_fast_plant_model(n_secondary=16)
 
 
 def test_save_load_roundtrip(tmp_path):

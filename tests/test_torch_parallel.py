@@ -183,3 +183,14 @@ def test_make_mesh_refuses_a_shape_that_does_not_fit():
         with pytest.raises(RuntimeError, match="(?i)nccl"):
             parallel.make_mesh(device="cuda")
     assert not dist.is_initialized()
+
+
+def test_sharded_batch_result_fields_match_jax():
+    from quadruped_gym_tpu.parallel import sharded_mpc as jax_sharded
+
+    from quadruped_gym_tpu_torch.parallel import sharded_mpc
+
+    assert (sharded_mpc.ShardedBatchResult._fields
+            == jax_sharded.ShardedBatchResult._fields == ("costs",))
+    costs = torch.arange(4.0)
+    assert sharded_mpc.ShardedBatchResult(costs=costs).costs is costs

@@ -277,6 +277,11 @@ def test_export_policy_round_trip(tmp_path):
     ("scripts", "torch_kernel_roofline", []),
     ("scripts", "torch_eval_report", ["--policy", POLICY, "--out", "x"]),
     ("scripts", "torch_export_policy", ["--ckpt", POLICY, "--out", "x"]),
+    ("scripts", "torch_latency_parts", []),
+    ("scripts", "torch_latency_report", []),
+    ("scripts", "torch_latency_sweep", []),
+    ("scripts", "torch_diag_gait", []),
+    ("scripts", "torch_full_plant_budget_study", []),
 ])
 def test_entry_points_need_the_card(folder, name, argv, tmp_path,
                                     monkeypatch):
