@@ -36,7 +36,12 @@ Phases, each of which raises on failure (nothing is caught):
    with terrain at its ranges) and the latency demo's planner (S=1,024,
    2/4), and at the research phase's budget study's new model (the fast
    plant with ``n_secondary`` 32, S=1,024, 2/4), each grounded over one
-   control step, float32.
+   control step, float32. And both kernels on the hulls the model
+   getters' keywords decimate otherwise than the defaults: B1 (S=1,024,
+   4/8) and B2 (B=2,048, frame_skip 5, 4/8) on
+   ``get_fast_plant_model(n_secondary=None)``, B1 (S=1,024, 2/4) on
+   ``get_planning_model(n_directions=64)``, float32, each with its slot
+   budgets and launch geometry.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -87,12 +92,13 @@ Phases, each of which raises on failure (nothing is caught):
    (1,024 samples, H=20, 2 iterations, fused kernel) on the planning
    model driving the oracle
    engine on the ``mpc_plant`` model (feet, shins and ankle servos with
-   full hulls) for 200 control steps of ``closed_loop`` under a 0.15 m/s
+   full hulls) for 150 control steps of ``closed_loop`` (of the
+   example's 200) under a 0.15 m/s
    forward command, float32. The walk must be finite, upright and go
-   forward (limits at ``WALK_LIMITS``). Then 4 steps of
-   ``delayed_closed_loop`` with the oracle plant and 4 with the
-   leg-engine plant, the period's split into plan and plant over 2
-   periods, timed with a synchronise after each part, and one traced
+   forward (limits at ``WALK_LIMITS``). Then 2 steps of
+   ``delayed_closed_loop`` with the oracle plant and 2 with the
+   leg-engine plant, the period's split into plan and plant over 1
+   period after a first, timed with a synchronise after each part, and one traced
    call of each (``torch.profiler``): the kernels the card ran and its
    idle share.
 10. train: PPO at the trainer's defaults (2,048 envs x 32 steps, the
@@ -117,20 +123,22 @@ Phases, each of which raises on failure (nothing is caught):
 11. eval: the trainer's per-iteration eval. The committed policy through
    ``rl.evaluate.eval_rollout`` on the card in float32
    (``POWalkingQuadrupedEnv`` on ``full``, obs window 10, frame_skip 10,
-   24 contacts, the model's Newton budget), its 20 s episode cut to the
-   JAX test's 0.6 s (30 control steps) and held to that test's limits;
+   24 contacts, the model's Newton budget), its 20 s episode cut to 0.3
+   s (half the JAX test's 0.6 s: 15 control steps) and held to that
+   test's limits;
    a control step timed after landing (host clock, synchronised) and one
    substep of its physics traced (``torch.profiler``: kernels, device
    time, idle share); the 20 s episode's cost extrapolated, beside the
    train phase's update; and ``rl.train.main`` at 2,048 envs with the eval on,
-   cut to one update of 2 env steps and a 0.2 s eval episode, its
+   cut to one update of 2 env steps and a 0.1 s eval episode, its
    ``logs/eval_metrics.jsonl`` row, plots and video checked. Neither
    kernel runs on this path (the gym env steps the oracle engine).
 12. grad: the gradient solvers through their entry points, float32:
    ``examples/torch_gait_sqp.py``'s ``main`` at its defaults (fast plant,
    H=50, frame_skip 5, 12 contacts, 4 Newton passes, the stance settled
    for 400 steps, the sine warm start) with SQP (1 of 10 iterations; it
-   must descend) and iLQR (1 iteration; never above its initial cost):
+   must descend) and iLQR (1 iteration at H=20; never above its initial
+   cost):
    costs, the seconds of each part of an iteration, the re-rollout's walk
    (no gait iteration with the FD linearization here: the research phase
    runs ``fd_linearize`` on the fast plant at H=4 in float32, and the
@@ -175,15 +183,18 @@ Phases, each of which raises on failure (nothing is caught):
    (B1 at S = 1,024 ... 16,384, K=5), beside the tools phase's curve; (d)
    ``scripts/torch_diag_gait.py`` at H=4, once with each linearization
    (AD, then FD from the same cached stance; every stage finite); (e)
-   ``scripts/torch_full_plant_budget_study.py``, 30 steps a case (the
+   ``scripts/torch_full_plant_budget_study.py``, 20 steps a case (the
    verdict reported, not gated; every case finite and upright).
-15. time: fused rollouts/s at S=65,536, H=50, float32 (synchronised per
-   solve, 5 solves after a warm-up); the substep kernel's ``control_step``
+15. time: ``torch_bench.py`` (the port's ``bench.py``): fused rollouts/s
+   of both plants at S=65,536, H=50, float32 through
+   ``lane_batched_rollout_cost(engine_impl="fused")`` (synchronised per
+   solve, 5 solves after a warm-up; its JSON line printed); the kernel's
+   own time per solve (CUDA events); the substep kernel's ``control_step``
    per launch at B=65,536 and B=2,048; each kernel's plain version and
    bound; B1's bound at the closed loop's shape; the custom-cost solve and
    the env's steps/s as phases 5 and 6 measured them.
 
-Phases 4 to 14 each set the launch counters to 0 just before driving
+Phases 4 to 15 each set the launch counters to 0 just before driving
 their path and read them just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -233,18 +244,20 @@ SUBSTEP = "substep"
 ORACLE_F64_TOL = 1e-9
 ORACLE_CASES = {"mpc_plant": dict(max_contacts=12, solver_iterations=4),
                 "full": dict(max_contacts=24, solver_iterations=None)}
-# the closed-loop walk: 200 control steps = 2 s of simulated time under a
-# 0.15 m/s command. The JAX package's example typically travels ~0.32 m
-# forward with < 3 cm of drift and uprightness > 0.98; the noise streams
-# differ, so the limits are loose.
-WALK_STEPS = 200
+# the closed-loop walk: 150 control steps = 1.5 s of simulated time under a
+# 0.15 m/s command (cut from the example's 200 for the script's time
+# limit; the research phase's budget study walks the same closed loop).
+# The JAX package's example typically travels ~0.32 m forward in 200 steps
+# with < 3 cm of drift and uprightness > 0.98; the noise streams differ,
+# so the limits are loose.
+WALK_STEPS = 150
 WALK_SPEED = 0.15
 WALK_LIMITS = {"forward_m": 0.15, "sideways_m": 0.10, "upright": 0.9}
 # the delayed loop, on each plant engine (cut from 20 steps: its lane
-# plant takes ~5 s a period); the loop split's periods (cut from 5: each
-# runs the lane plant too)
-DELAYED_STEPS = 4
-SPLIT_PERIODS = 2
+# plant takes ~5 s a period; the research phase's latency report drives it
+# too); the loop split's periods (cut from 5: each runs the lane plant too)
+DELAYED_STEPS = 2
+SPLIT_PERIODS = 1
 # the train phase: rl.train.main's defaults, one update an iteration
 TRAIN_ARGS = ["--timesteps-per-iteration", "65536", "--no-eval"]
 LANE_TRAIN_STEPS = 2
@@ -258,19 +271,20 @@ POLICY = os.path.join(REPO, "artifacts", "walk_r5", "policy_params")
 # ~1e-6; TF32 products would miss by ~1e-3
 POLICY_TOL = 1e-5
 # the eval phase: the committed policy through rl.evaluate.eval_rollout on
-# the gym env's model (full), cut from the trainer's 20 s episode to the
-# JAX package's test episode (tests/test_walk_policy.py: 0.6 s, 30 control
-# steps at frame_skip 10 in float64, 31 on a float32 clock) and held to
-# that test's limits
-EVAL_MAX_TIME = 0.6
+# the gym env's model (full), cut from the trainer's 20 s episode to half
+# the JAX package's test episode (tests/test_walk_policy.py: 0.6 s, 30
+# control steps at frame_skip 10 in float64) for the script's time limit,
+# and held to that test's limits
+EVAL_MAX_TIME = 0.3
 EVAL_EPISODE_S = 20.0  # rl.train's --max-time: the episode it evals
 EVAL_LIMITS = {"upright": 0.9, "tracking": 0.5}
 EVAL_WARM_STEPS = 8
 EVAL_TIMED_STEPS = 2
 # rl.train.main at its defaults (2,048 envs), cut to one update of 2 env
 # steps and an eval episode of 0.2 s (10 control steps)
+EVAL_TRAIN_MAX_TIME = 0.1
 EVAL_TRAIN_ARGS = ["--num-steps", "2", "--timesteps-per-iteration", "4096",
-                   "--iterations", "1", "--max-time", "0.2"]
+                   "--iterations", "1", "--max-time", str(EVAL_TRAIN_MAX_TIME)]
 # the gradient solvers against the CPU, float64: A and B of both
 # linearizers, and one SQP iteration's controls and cost
 GRAD_LIN_TOL = 1e-9
@@ -285,6 +299,9 @@ GRAD_SQP_TOL = 1e-8
 # runs fd_linearize on the fast plant in float32, and check_gradient holds
 # it, card against CPU, in float64.)
 GAIT_ITERS = {"sqp": 1, "ilqr": 1}
+# the iLQR gait's horizon, cut from 50 for the script's time limit (the
+# SQP gait times an H=50 iteration; iLQR runs at H=20 in the loops too)
+GAIT_ILQR_H = 20
 GRAD_LOOP_STEPS = 1
 GRAD_DELAYED_STEPS = 1
 # the lane engine on the card against the CPU, float64, one step at 4/8,
@@ -346,7 +363,7 @@ NATIVE_ROWS = 20000
 # after one warm-up, its K-call timings from K=20 x 3 to K=2 x 1; (c) the
 # sweep's K cut from 20 to 5; (d) diag_gait's horizon cut from 12 to 4,
 # run with each linearization;
-# (e) the budget study cut from 200 to 30 steps a case
+# (e) the budget study cut from 200 to 20 steps a case
 RESEARCH_K = 2
 RESEARCH_PARTS_ARGS = ["--k", str(RESEARCH_K), "--reps", "1"]
 RESEARCH_REPORT_NS = (2, 3, 4)
@@ -355,7 +372,7 @@ RESEARCH_REPORT_ARGS = ["--ns", *map(str, RESEARCH_REPORT_NS), "--loop-reps",
                         "1"]
 RESEARCH_SWEEP_K = 5
 RESEARCH_DIAG_H = 4
-RESEARCH_STUDY_STEPS = 30
+RESEARCH_STUDY_STEPS = 20
 EVAL_KEYS = {"episode_return", "steps", "survived", "mean_tracking_error",
              "final_tracking_error", "mean_uprightness", "command_speed",
              "iteration"}
@@ -472,15 +489,22 @@ def launch_report(rec):
             f"per SM (CUDA occupancy API)")
 
 
+def model_of(model):
+    """``model`` itself, or the model a name selects (``spec.SNAPSHOTS``)."""
+    from quadruped_gym_tpu_torch.models import spec
+
+    return spec.get_snapshot(model) if isinstance(model, str) else model
+
+
 def check_case(rec, label, model, kind, S, H, fs, budget, dtype, tol,
                dp_ranges=None, seed=0):
     """Kernel vs plain version on the card, on the same inputs; ``model``
-    names a snapshot (``spec.SNAPSHOTS``)."""
+    is a model or names one (``model_of``)."""
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
     dev = torch.device("cuda")
-    m = spec.get_snapshot(model)
+    m = model_of(model)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -545,12 +569,13 @@ def lane_inputs(m, kind, B, rng, dtype, device):
 def check_substep(rec, label, model, kind, B, nsub, budget, dtype, tol,
                   dp_ranges=None, seed=0, single_step=False, sensors=True):
     """The substep kernel vs its plain version on the card, on the same
-    inputs: qpos, qvel, act, time and every sensor."""
+    inputs: qpos, qvel, act, time and every sensor; ``model`` as in
+    ``check_case``."""
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
     dev = torch.device("cuda")
-    m = getattr(spec, f"get_{model}_model")()
+    m = model_of(model)
     ls, ctrl = lane_inputs(m, kind, B, np.random.default_rng(seed), dtype,
                            dev)
     dp = None
@@ -690,10 +715,58 @@ def phase_check(rec):
                       "fast_plant", "grounded", N_ENVS, ENV_FRAME_SKIP,
                       BUDGET["fast_plant"], f32, F32_TOL, seed=18),
     )
+    check_decimations(rec)
     check_refused_launch(rec)
     check_oracle(rec)
     check_gradient(rec)
     check_lane(rec)
+
+
+def check_decimations(rec, S=1024, B=2048):
+    """The kernels on hulls that the getters' keywords decimate otherwise
+    than the defaults: the fast plant with every hull at 128 support
+    directions (``n_secondary=None``: the ankle servos' hulls grow from
+    47 to 79 vertices) through B1 and B2, and the planning model at 64
+    directions through B1, float32, each with its contact slots, launch
+    geometry and the runtime's resident blocks."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    f32 = torch.float32
+    every = spec.get_fast_plant_model(n_secondary=None)
+    coarse = spec.get_planning_model(n_directions=64)
+    rec["decimations"] = {}
+    for label, m, source, n in (
+            ("B1 fast_plant n_secondary=None", every,
+             cuda_engine.KERNEL_SOURCE, S),
+            ("B2 fast_plant n_secondary=None", every,
+             cuda_engine.SUBSTEP_SOURCE, B),
+            ("B1 planning n_directions=64", coarse,
+             cuda_engine.KERNEL_SOURCE, S)):
+        nslot = cuda_engine.model_slots(m)
+        geo = cuda_engine.launch_geometry(nslot, f32, n)
+        info = cuda_engine.kernel_info(source, f32, geo.threads,
+                                       geo.smem_bytes)
+        row = {"n": n, "hull_verts": [len(v) for v in m.col_hull_verts],
+               "slot_budgets": list(cuda_engine.slot_budgets(m)),
+               "grid": geo.grid, "threads": geo.threads,
+               "smem_bytes": geo.smem_bytes,
+               "blocks_per_sm": info["blocks_per_sm"]}
+        rec["decimations"][label] = row
+        log(f"decimation {label}: n={n}, hull vertices "
+            f"{row['hull_verts']}, slot budgets {row['slot_budgets']} "
+            f"({nslot} slots a leg), float32: grid {geo.grid} x "
+            f"{geo.threads} threads, {geo.smem_bytes} B dynamic shared a "
+            f"block, {info['blocks_per_sm']} blocks per SM")
+    check_case(rec, "f32 fast_plant n_secondary=None grounded (decimation)",
+               every, "grounded", S, 1, FRAME_SKIP, BUDGET["fast_plant"],
+               f32, F32_TOL, seed=23)
+    check_substep(rec, "f32 fast_plant n_secondary=None grounded "
+                  "(decimation)", every, "grounded", B, FRAME_SKIP,
+                  BUDGET["fast_plant"], f32, F32_TOL, seed=24)
+    check_case(rec, "f32 planning n_directions=64 grounded (decimation)",
+               coarse, "grounded", S, 1, FRAME_SKIP, BUDGET["planning"],
+               f32, F32_TOL, seed=25)
 
 
 def oracle_states(m, dtype, device, **kw):
@@ -2243,7 +2316,8 @@ def phase_eval(rec):
         _, its = train.main(argv)
         with open(os.path.join(run, "logs", "eval_metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
-        want = episode_steps(0.2, env.pm.timestep, env.frame_skip)
+        want = episode_steps(EVAL_TRAIN_MAX_TIME, env.pm.timestep,
+                             env.frame_skip)
         if (len(rows) != 1 or set(rows[0]) != EVAL_KEYS
                 or rows[0]["iteration"] != 0 or rows[0]["steps"] != want
                 or not np.isfinite(rows[0]["episode_return"])):
@@ -2352,7 +2426,8 @@ def phase_grad(rec):
         out["first_call_s"] = time.perf_counter() - t0
         if not out["sqp"]["final_cost"] < out["sqp"]["initial_cost"]:
             raise AssertionError("grad: gait SQP did not descend")
-        out["ilqr"] = gait_run(rec, gait, tmp, "ilqr", GAIT_ITERS["ilqr"])
+        out["ilqr"] = gait_run(rec, gait, tmp, "ilqr", GAIT_ITERS["ilqr"],
+                               ("--horizon", str(GAIT_ILQR_H)))
         log(f"grad gait: the first call (settle to stance, 400 steps at the "
             f"model's Newton budget, included) took {out['first_call_s']:.1f}"
             f" s; card: {rec['card']}")
@@ -3022,16 +3097,38 @@ def bound(m, it, lsi, S, H, fs=FRAME_SKIP):
 
 
 def phase_time(rec, iters=5, plain_h=2, seed=7):
+    """The headline rollouts/s of both plants from ``torch_bench.py``
+    (host clock, through ``lane_batched_rollout_cost(engine_impl=
+    "fused")``, its launches counted), then per plant the kernel's own
+    time on the card (CUDA events around direct launches), its plain
+    version and its bound."""
+    import torch_bench
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine
     from quadruped_gym_tpu_torch.physics.engine import make_state
+
+    cuda_engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    bench = torch_bench.main(["--plant", "both", "--seed", str(seed)])
+    bench_s = time.perf_counter() - t0
+    n_bench = cuda_engine.launch_counts[ROLLOUT]
+    want = 2 * (torch_bench.ITERS + 1)
+    if n_bench != want or cuda_engine.launch_counts[SUBSTEP]:
+        raise AssertionError(f"torch_bench launched {cuda_engine.launch_counts}"
+                             f", want {want} of {ROLLOUT} and none else")
+    counts = rec.setdefault("launches", {})
+    counts[ROLLOUT] = counts.get(ROLLOUT, 0) + n_bench
+    rec["bench"] = bench
+    log(f"time torch_bench: {bench_s:.1f} s, {n_bench} launches of "
+        f"{ROLLOUT} (2 plants x (1 warm-up + {torch_bench.ITERS} solves))")
 
     dev, dt = torch.device("cuda"), torch.float32
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     cmd, prev = command(dt, dev), prev_ctrl(dt, dev)
     rec["timing"] = {}
-    for model in ("planning", "fast_plant"):
+    for model, rps in (("planning", bench["value"]),
+                       ("fast_plant", bench["full_plant_rollouts_per_s"])):
         m = getattr(spec, f"get_{model}_model")()
         it, lsi = BUDGET[model]
         state = make_state(m, dtype=dt, device=dev)
@@ -3043,21 +3140,17 @@ def phase_time(rec, iters=5, plain_h=2, seed=7):
                     for _ in range(iters + 1)]
         run(all_seqs[-1])  # warm-up
         torch.cuda.synchronize()
-        host_s, dev_ms = [], []
+        dev_ms = []
         for seqs in all_seqs[:iters]:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             e0.record()
             costs = run(seqs)
             e1.record()
             torch.cuda.synchronize()
-            host_s.append(time.perf_counter() - t0)
             dev_ms.append(e0.elapsed_time(e1))
             if not bool(torch.isfinite(costs).all()):
                 raise AssertionError(f"{model}: non-finite costs")
-        rps = S_MAIN * iters / sum(host_s)
         # the plain version at a cut horizon, scaled to H=50
         short = all_seqs[0][:, :plain_h].contiguous()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -3069,18 +3162,19 @@ def phase_time(rec, iters=5, plain_h=2, seed=7):
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1) * H_MAIN / plain_h
         bound_ms, bound_by, per_step = bound(m, it, lsi, S_MAIN, H_MAIN)
-        row = {"rollouts_per_s": rps, "solve_s": host_s,
+        row = {"rollouts_per_s": rps,
                "ms": float(np.median(dev_ms)), "ms_each": dev_ms,
                "plain_ms": plain_ms, "plain_h": plain_h,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "ops_per_rollout_step": per_step, "budget": [it, lsi]}
         rec["timing"][model] = row
         log(f"time {model} ({it}/{lsi}): {rps:.1f} rollouts/s "
-            f"(S={S_MAIN}, H={H_MAIN}, frame_skip {FRAME_SKIP}, float32; "
-            f"host clock, synchronised per solve); kernel "
-            f"{row['ms']:.3f} ms median (CUDA events); plain version "
-            f"{plain_ms:.1f} ms (H={plain_h} scaled x{H_MAIN // plain_h}); "
-            f"bound {bound_ms:.3f} ms by {bound_by} "
+            f"(torch_bench: S={S_MAIN}, H={H_MAIN}, frame_skip {FRAME_SKIP}"
+            f", float32; host clock, synchronised per solve); kernel "
+            f"{row['ms']:.3f} ms median (CUDA events, {iters} direct "
+            f"launches) = {S_MAIN / row['ms'] * 1e3:.1f} rollouts/s; plain "
+            f"version {plain_ms:.1f} ms (H={plain_h} scaled "
+            f"x{H_MAIN // plain_h}); bound {bound_ms:.3f} ms by {bound_by} "
             f"({per_step:.0f} ops per rollout step); card: {rec['card']}")
     phase_time_loop_shape(rec, gen, cmd, prev)
     phase_time_substep(rec)

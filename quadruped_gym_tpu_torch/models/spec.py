@@ -2,12 +2,14 @@
 
 Counterpart of ``quadruped_gym_tpu/models/spec.py``. The JAX package
 compiles the MJCF with MuJoCo at build time; this package carries no
-MuJoCo, so the five models it needs are stored as snapshots of the JAX
-package's ``get_planning_model()``, ``get_fast_plant_model()``,
-``get_model(collision_geom_prefixes=MPC_COLLISION_PREFIXES)``,
-``get_model()`` and ``get_fast_plant_model(n_secondary=32)``
-(``assets/{planning,fast_plant,mpc_plant,full,fast_plant_nsec32}.npz``).
-Regenerate them, where MuJoCo and the JAX package are installed, with::
+MuJoCo, so the three full-hull models it starts from are stored as
+snapshots of the JAX package's
+``get_model(collision_geom_prefixes=FEET_COLLISION_PREFIXES)``,
+``get_model(collision_geom_prefixes=MPC_COLLISION_PREFIXES)`` and
+``get_model()`` (``assets/{feet,mpc_plant,full}.npz``). The planning and
+fast-plant models are derived from the first two by ``decimate_hulls``,
+as the JAX package derives them. Regenerate the snapshots, where MuJoCo
+and the JAX package are installed, with::
 
     python scripts/snapshot_torch_models.py
 """
@@ -246,28 +248,70 @@ def _cached(name: str) -> PhysicsModel:
     return _MODEL_CACHE[name]
 
 
-def get_planning_model() -> PhysicsModel:
+def decimate_hulls(
+    m: PhysicsModel,
+    n_directions: int = 128,
+    per_geom_directions: Optional[dict] = None,
+) -> PhysicsModel:
+    """Planning-model hull decimation: keep only the vertices that are
+    argmax support points along ``n_directions`` Fibonacci-sphere
+    directions (the plane-convex contact only ever touches hull support
+    vertices). ``per_geom_directions`` maps geom-name prefixes to coarser
+    direction counts (e.g. ``{"shin": 32}``), taken as evenly spaced
+    indices of the full direction set."""
+    # Fibonacci sphere
+    i = np.arange(n_directions) + 0.5
+    phi = np.arccos(1.0 - 2.0 * i / n_directions)
+    theta = np.pi * (1.0 + 5.0**0.5) * i
+    dirs = np.stack(
+        [np.cos(theta) * np.sin(phi), np.sin(theta) * np.sin(phi), np.cos(phi)],
+        axis=1,
+    )
+
+    def hull_dirs(k):
+        if per_geom_directions is None:
+            return dirs
+        nd = None
+        for prefix, n in per_geom_directions.items():
+            if m.col_geom_names[k].startswith(prefix):
+                nd = n
+        if nd is None or nd >= n_directions:
+            return dirs
+        return dirs[np.linspace(0, n_directions - 1, nd).astype(int)]
+
+    new_hulls = []
+    for k, verts in enumerate(m.col_hull_verts):
+        v = np.asarray(verts)
+        keep = np.unique(np.argmax(hull_dirs(k) @ v.T, axis=1))
+        new_hulls.append(v[keep])
+    return dataclasses.replace(m, col_hull_verts=tuple(new_hulls))
+
+
+def get_planning_model(n_directions: int = 128) -> PhysicsModel:
     """Feet-only, decimated-hull model for maximum-throughput planning
-    (snapshot of the JAX package's ``get_planning_model()``)."""
-    return _cached("planning")
+    (the JAX package's ``get_planning_model(n_directions)``)."""
+    key = ("planning", n_directions)
+    if key not in _MODEL_CACHE:
+        _MODEL_CACHE[key] = decimate_hulls(_cached("feet"), n_directions)
+    return _MODEL_CACHE[key]
 
 
-# the fast plant's shin/ankle-servo decimations that have a snapshot
-FAST_PLANT_SNAPSHOTS = {64: "fast_plant", 32: "fast_plant_nsec32"}
-
-
-def get_fast_plant_model(n_secondary: int = 64) -> PhysicsModel:
-    """Feet + shins + ankle servos with decimated hulls (snapshot of the
-    JAX package's ``get_fast_plant_model(n_secondary=n_secondary)``: the
-    feet at 128 support directions, the shins and ankle servos at
-    ``n_secondary``). 64 (the default) and 32 have snapshots; another
-    value needs one written by ``scripts/snapshot_torch_models.py``."""
-    if n_secondary not in FAST_PLANT_SNAPSHOTS:
-        raise ValueError(
-            f"no fast-plant snapshot with n_secondary={n_secondary!r} (there "
-            f"are {sorted(FAST_PLANT_SNAPSHOTS)}); write one with "
-            "scripts/snapshot_torch_models.py")
-    return _cached(FAST_PLANT_SNAPSHOTS[n_secondary])
+def get_fast_plant_model(
+    n_directions: int = 128, n_secondary: Optional[int] = 64
+) -> PhysicsModel:
+    """Feet + shins + ankle servos with decimated hulls (the JAX package's
+    ``get_fast_plant_model(n_directions, n_secondary)``): every hull at
+    ``n_directions`` support directions, the shins and ankle servos at
+    ``n_secondary`` (None: at ``n_directions`` too)."""
+    key = ("fast_plant", n_directions, n_secondary)
+    if key not in _MODEL_CACHE:
+        per_geom = (
+            None if n_secondary is None
+            else {"shin": n_secondary, "ankle_servo": n_secondary}
+        )
+        _MODEL_CACHE[key] = decimate_hulls(
+            _cached("mpc_plant"), n_directions, per_geom_directions=per_geom)
+    return _MODEL_CACHE[key]
 
 
 def get_mpc_plant_model() -> PhysicsModel:
@@ -283,16 +327,25 @@ def get_full_model() -> PhysicsModel:
     return _cached("full")
 
 
-SNAPSHOTS = ("planning", "fast_plant", "mpc_plant", "full",
-             "fast_plant_nsec32")
+# every model a name selects: the full-hull snapshots (assets/<name>.npz)
+# and the decimated models derived from them
+MODELS = {
+    "planning": get_planning_model,
+    "fast_plant": get_fast_plant_model,
+    "mpc_plant": get_mpc_plant_model,
+    "full": get_full_model,
+    "fast_plant_nsec32": lambda: get_fast_plant_model(n_secondary=32),
+    "feet": lambda: _cached("feet"),
+}
+SNAPSHOTS = tuple(MODELS)
 
 
 def get_snapshot(name: str) -> PhysicsModel:
-    """The committed snapshot called ``name``, one of ``SNAPSHOTS``."""
-    if name not in SNAPSHOTS:
+    """The model called ``name``, one of ``SNAPSHOTS``."""
+    if name not in MODELS:
         raise ValueError(f"no model snapshot {name!r}; the snapshots are "
                          f"{', '.join(SNAPSHOTS)}")
-    return _cached(name)
+    return MODELS[name]()
 
 
 # --------------------------------------------------------------------------

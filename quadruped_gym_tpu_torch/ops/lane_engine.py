@@ -389,6 +389,11 @@ def _build_consts(m: PhysicsModel, dtype, device) -> types.SimpleNamespace:
     c.quat_mat = lane(Q)
 
     # ---- forward kinematics, one tree depth at a time ----
+    # A free joint sets its body's frame; every other body composes its
+    # parent's frame with its offset and then its joints in joint order
+    # (none for a body welded to its parent). A level's jointed bodies
+    # are ordered by joint count, most first, so that the k-th joint step
+    # covers a leading block of the level.
     depth = [0] * nb
     for b in range(1, nb):
         depth[b] = depth[m.body_parentid[b]] + 1
@@ -397,37 +402,37 @@ def _build_consts(m: PhysicsModel, dtype, device) -> types.SimpleNamespace:
     levels = []
     for d in range(1, max(depth) + 1):
         bodies = [b for b in range(1, nb) if depth[b] == d]
-        free = [b for b in bodies if m.body_jntadr[b] >= 0
+        free = [b for b in bodies if m.body_jntnum[b]
                 and m.jnt_type[m.body_jntadr[b]] == JNT_FREE]
-        hinge = [b for b in bodies if b not in free]
-        for b in free + hinge:
-            if (m.body_jntnum[b] != 1
-                    or (b in free and m.body_parentid[b] != 0)):
-                raise NotImplementedError(
-                    f"lane engine: body {b} has {m.body_jntnum[b]} joints; "
-                    "each body needs one hinge, or one free joint off the "
-                    "world")
-        hinge_c = None
-        if hinge:
-            js = [m.body_jntadr[b] for b in hinge]
-            K = np.stack([np.cross(np.eye(3), m.jnt_axis[j])
-                          for j in js])  # [axis]x
-            hinge_c = types.SimpleNamespace(
-                parent=idx([where_at[m.body_parentid[b]] for b in hinge]),
-                bpos=lane(np.asarray(m.body_pos)[hinge]),
+        rest = sorted((b for b in bodies if b not in free),
+                      key=lambda b: -m.body_jntnum[b])
+        rest_c = None
+        if rest:
+            steps = []
+            for k in range(max(m.body_jntnum[b] for b in rest)):
+                js = [m.body_jntadr[b] + k for b in rest
+                      if m.body_jntnum[b] > k]
+                K = np.stack([np.cross(np.eye(3), m.jnt_axis[j])
+                              for j in js])  # [axis]x
+                steps.append(types.SimpleNamespace(
+                    n=len(js) if len(js) < len(rest) else None,
+                    qadr=idx([m.jnt_qposadr[j] for j in js]),
+                    qpos0=lane(np.asarray(m.qpos0)[[m.jnt_qposadr[j]
+                                                    for j in js]]),
+                    jpos=lane(np.asarray(m.jnt_pos)[js]),
+                    K=lane(K), K2=lane(K @ K)))
+            rest_c = types.SimpleNamespace(
+                parent=idx([where_at[m.body_parentid[b]] for b in rest]),
+                bpos=lane(np.asarray(m.body_pos)[rest]),
                 bmat=lane(np.stack([_np_quat_mat(m.body_quat[b])
-                                    for b in hinge])),
-                qadr=idx([m.jnt_qposadr[j] for j in js]),
-                qpos0=lane(np.asarray(m.qpos0)[[m.jnt_qposadr[j]
-                                                for j in js]]),
-                jpos=lane(np.asarray(m.jnt_pos)[js]),
-                K=lane(K), K2=lane(K @ K))
+                                    for b in rest])),
+                joints=steps)
         levels.append(types.SimpleNamespace(
             free_qadr=[m.jnt_qposadr[m.body_jntadr[b]] for b in free],
-            hinge=hinge_c))
-        for i, b in enumerate(free + hinge):
+            rest=rest_c))
+        for i, b in enumerate(free + rest):
             where_at[b] = i
-        order += free + hinge
+        order += free + rest
     c.fk_levels = levels
     c.fk_to_body = idx(np.argsort(order))
     c.body_ipos = lane(m.body_ipos)
@@ -452,9 +457,11 @@ def _build_consts(m: PhysicsModel, dtype, device) -> types.SimpleNamespace:
     row_dof = []
     for j in free_j:
         row_dof += list(range(m.jnt_dofadr[j], m.jnt_dofadr[j] + 6))
-    if row_dof + [m.jnt_dofadr[j] for j in hinge_j] != list(range(nv)):
-        raise NotImplementedError("lane engine: the free joints' dofs must "
-                                  "come first")
+    row_dof += [m.jnt_dofadr[j] for j in hinge_j]
+    # the rows come free joints first; put them in dof order where a free
+    # joint's dofs follow a hinge's
+    c.subspace_order = (None if row_dof == list(range(nv))
+                        else idx(np.argsort(row_dof)))
     c.free_lin_rows = lane(np.concatenate([np.zeros((3, 3)), np.eye(3)], 1))
 
     # ---- tree masks ----
@@ -603,7 +610,8 @@ class _Kin(NamedTuple):
 
 def _fk(m: PhysicsModel, q) -> _Kin:
     """Body frames from qpos (mj_kinematics: a hinge rotates its body about
-    the joint anchor by ``qpos - qpos0``, a free joint sets the frame).
+    the joint anchor by ``qpos - qpos0``, a body's hinges one after the
+    other in joint order; a free joint sets the frame).
     The JAX package composes quaternions; this composes rotation matrices,
     R_axis(θ) = 1 + sin θ [a]x + (1 - cos θ) [a]x², the same rotation."""
     c = _consts(m, q.dtype, q.device)
@@ -616,17 +624,23 @@ def _fk(m: PhysicsModel, q) -> _Kin:
             pos_l.append(q[qa:qa + 3][None])
             mat_l.append(_quat_to_mat(
                 c, _quat_normalize(q[qa + 3:qa + 7]))[None])
-        g = lv.hinge
+        g = lv.rest
         if g is not None:
             rp = mat[-1].index_select(0, g.parent)
             p = pos[-1].index_select(0, g.parent) + _mv(rp, g.bpos)
             r = _mm(rp, g.bmat)
-            angle = q.index_select(0, g.qadr) - g.qpos0
-            anchor = p + _mv(r, g.jpos)
-            s = torch.sin(angle)[:, None, None]
-            omc = (1.0 - torch.cos(angle))[:, None, None]
-            r = _mm(r, c.eye3 + s * g.K + omc * g.K2)
-            p = anchor - _mv(r, g.jpos)
+            for j in g.joints:
+                pj, rj = (p, r) if j.n is None else (p[:j.n], r[:j.n])
+                angle = q.index_select(0, j.qadr) - j.qpos0
+                anchor = pj + _mv(rj, j.jpos)
+                s = torch.sin(angle)[:, None, None]
+                omc = (1.0 - torch.cos(angle))[:, None, None]
+                rj = _mm(rj, c.eye3 + s * j.K + omc * j.K2)
+                pj = anchor - _mv(rj, j.jpos)
+                if j.n is None:
+                    p, r = pj, rj
+                else:
+                    p, r = torch.cat([pj, p[j.n:]]), torch.cat([rj, r[j.n:]])
             pos_l.append(p)
             mat_l.append(r)
         pos.append(torch.cat(pos_l) if len(pos_l) > 1 else pos_l[0])
@@ -659,7 +673,10 @@ def _subspace(m: PhysicsModel, kin: _Kin):
                   - kin.origin)
         axis = _mv(r, c.hinge_axis)
         rows.append(torch.cat([axis, _cross(anchor, axis)], 1))
-    return torch.cat(rows) if len(rows) > 1 else rows[0]
+    S = torch.cat(rows) if len(rows) > 1 else rows[0]
+    if c.subspace_order is not None:
+        S = S.index_select(0, c.subspace_order)
+    return S
 
 
 def _body_velocities(m: PhysicsModel, S, qv):

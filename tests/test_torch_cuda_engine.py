@@ -28,7 +28,18 @@ from quadruped_gym_tpu_torch.tasks.rewards import SensorSlices
 PREV = [0.0, 0.0, -0.5] * 4
 
 
+# decimations the getters' keywords build (the check phase of
+# chip_smoke.py holds the card to them too)
+DECIMATED = {
+    "fast_plant_nsec_none": lambda: spec.get_fast_plant_model(
+        n_secondary=None),
+    "planning_64": lambda: spec.get_planning_model(64),
+}
+
+
 def _model(name):
+    if name in DECIMATED:
+        return DECIMATED[name]()
     return getattr(spec, f"get_{name}_model")()
 
 
@@ -268,6 +279,8 @@ def test_host_substep_matches_leg_engine(host_lib, airborne, it):
     ("planning", "grounded", 1, 3, True),
     ("fast_plant", "grounded", 1, 5, False),
     ("fast_plant", "airborne", 2, 2, True),
+    ("fast_plant_nsec_none", "grounded", 1, 5, False),
+    ("planning_64", "grounded", 1, 5, False),
 ])
 def test_host_rollout_matches_plain_version(host_lib, name, kind, H, fs,
                                             with_dp):
@@ -287,7 +300,9 @@ def test_host_rollout_matches_plain_version(host_lib, name, kind, H, fs,
 
 
 @pytest.mark.parametrize("name,budget", [("planning", (2, 4)),
-                                         ("fast_plant", (4, 8))])
+                                         ("fast_plant", (4, 8)),
+                                         ("fast_plant_nsec_none", (4, 8)),
+                                         ("planning_64", (2, 4))])
 def test_host_rollout_float32(host_lib, name, budget):
     """float32 against the float32 plain version: rounding (~6e-8 an
     operation) amplified through the contact solve; 1e-4 is the bound

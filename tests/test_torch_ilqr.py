@@ -161,7 +161,8 @@ def test_quadratize_cost_at_the_hold_is_finite_where_jax_is_nan():
 
 def _fresh_model():
     """A model object of its own: the constants cache lives on it."""
-    return tspec.load_model(os.path.join(tspec.ASSETS_DIR, "planning.npz"))
+    return tspec.decimate_hulls(
+        tspec.load_model(os.path.join(tspec.ASSETS_DIR, "feet.npz")))
 
 
 def test_constants_cache_survives_transforms():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``quadruped_gym_tpu_torch``
 (``native/`` included), no ``examples/torch_*.py``, no
-``scripts/torch_*.py`` and not ``chip_smoke.py`` imports jax, optax,
+``scripts/torch_*.py``, not ``torch_bench.py`` and not ``chip_smoke.py``
+imports jax, optax,
 mujoco or the JAX package. The check
 reads the sources' import statements; it imports nothing. And each package
 of the port re-exports what its JAX counterpart's ``__init__`` does, for
@@ -20,7 +21,7 @@ SOURCES = sorted(
               recursive=True)
 ) + sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py"))) \
     + sorted(glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))) + [
-    os.path.join(REPO, "chip_smoke.py")]
+    os.path.join(REPO, "torch_bench.py"), os.path.join(REPO, "chip_smoke.py")]
 FORBIDDEN = ("jax", "jaxlib", "optax", "mujoco", "quadruped_gym_tpu")
 
 
@@ -38,7 +39,7 @@ def _imported(path):
 def test_sources_found():
     names = {os.path.relpath(p, REPO) for p in SOURCES}
     assert "quadruped_gym_tpu_torch/ops/cuda_engine.py" in names
-    assert "chip_smoke.py" in names
+    assert "chip_smoke.py" in names and "torch_bench.py" in names
     for mod in ("maths", "smooth", "collision", "constraints", "solver",
                 "integrator", "sensors", "engine"):
         assert f"quadruped_gym_tpu_torch/physics/{mod}.py" in names
@@ -61,26 +62,43 @@ def test_sources_found():
         assert f"scripts/{script}.py" in names
 
 
+# entry points of the JAX package that have no counterpart, and why
+NOT_PORTED_ENTRY_POINTS = {
+    # drives MuJoCo to calibrate the contact parameters that the port's
+    # snapshots carry
+    "scripts/calibrate_contacts.py",
+    # the TPU benchmark harness's hook: its single-chip compile check is
+    # what chip_smoke.py covers, its multi-device dry run what the port's
+    # parallel tests run at 2-4 gloo ranks and chip_smoke's parallel phase
+    # at one NCCL rank
+    "__graft_entry__.py",
+}
+
+
 def test_every_jax_entry_point_has_its_counterpart():
     """Each script and example that imports the JAX package has a
-    ``torch_`` namesake in its folder, but for ``calibrate_contacts.py``,
-    which drives MuJoCo to calibrate the contact parameters the port's
-    snapshots carry, and the port's own ``snapshot_torch_*`` scripts,
-    which write its references from the JAX package."""
+    ``torch_`` namesake in its folder, and so has each such file at the
+    repo's root (``bench.py`` -> ``torch_bench.py``), but for
+    ``NOT_PORTED_ENTRY_POINTS`` and the port's own ``snapshot_torch_*``
+    scripts, which write its references from the JAX package."""
     missing = []
-    for folder in ("scripts", "examples"):
+    for folder in (".", "scripts", "examples"):
         for path in sorted(glob.glob(os.path.join(REPO, folder, "*.py"))):
             name = os.path.basename(path)
+            rel = os.path.normpath(os.path.join(folder, name))
             if (name.startswith(("torch_", "snapshot_torch_"))
-                    or name == "calibrate_contacts.py"):
+                    or rel in NOT_PORTED_ENTRY_POINTS):
                 continue
-            if "quadruped_gym_tpu" not in set(_imported(path)) | {
+            if "quadruped_gym_tpu" not in {
                     n.split(".")[0] for n in _imported(path)}:
                 continue
             if not os.path.exists(os.path.join(REPO, folder,
                                                "torch_" + name)):
-                missing.append(f"{folder}/{name}")
+                missing.append(rel)
     assert missing == []
+    assert os.path.exists(os.path.join(REPO, "bench.py"))
+    for rel in NOT_PORTED_ENTRY_POINTS:
+        assert os.path.exists(os.path.join(REPO, rel)), rel
 
 
 def test_every_jax_module_has_its_counterpart():

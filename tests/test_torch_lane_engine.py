@@ -8,6 +8,12 @@ case is recomputed live here, the ``slow`` test recomputes them all.
 Tolerance against JAX: 1e-9 relative and absolute on qpos, qvel, act and
 sensordata (they agree to ~1e-13 on these states).
 
+Joint layouts that no committed model has (a body with two hinges, a
+body welded to its parent, free-joint dofs after the hinges') are held to
+the JAX lane engine live: the test writes a variant of the robot's MJCF,
+builds it with the JAX package's ``build_physics_model`` and runs both
+engines on it (one control step, ~9 s eagerly), at 1e-10.
+
 Against the port's other engines: the leg engine is the same math
 grouped per leg (1e-10 over five grounded substeps); the oracle engine
 with ``max_contacts = 3 * ngeom`` and 8 Newton passes at the JAX test's
@@ -30,6 +36,28 @@ from quadruped_gym_tpu_torch.physics import engine
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("qpos", "qvel", "act", "sensordata")
 JAX_TOL = 1e-9
+ASSETS = os.path.join(REPO, "quadruped_gym_tpu", "models", "assets")
+
+# MJCF edits (old text, new text) of quadruped.xml per joint layout
+LAYOUTS = {
+    # shin_1 carries a second hinge after knee_1; foot_2 is welded to
+    # shin_2 (ankle_2, its servo and its sensor removed)
+    "hinges": (
+        ('<joint name="knee_1" class="knee"/>',
+         '<joint name="knee_1" class="knee"/>\n<joint name="knee_1b" '
+         'type="hinge" axis="1 0 0" damping="0.2"/>'),
+        ('<joint name="ankle_2" class="ankle"/>', ''),
+        ('<position joint="ankle_2" class="ankle"/>', ''),
+        ('<jointpos joint="ankle_2" name="ankle_2_sensor"/>', ''),
+    ),
+    # a second free body after the robot: its dofs follow the hinges'
+    "free_last": (
+        ('    </worldbody>',
+         '        <body name="ball" pos="0.3 0 0.3"><freejoint/><inertial '
+         'pos="0 0 0" mass="0.05" diaginertia="2e-5 2e-5 2e-5"/></body>\n'
+         '    </worldbody>'),
+    ),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,3 +291,61 @@ def test_single_robot_lanes():
         m, lane_engine.LaneState(*(x[..., 0] for x in ls)), ctrl[:, 0], 2, 4)
     for a, b in zip(scalar, one):
         assert torch.equal(a, b[..., 0])
+
+
+def _layout_model(tmp_path, layout):
+    """(JAX model, port model) of a variant of the robot, feet-only
+    collision: built by the JAX package, then through a snapshot file as
+    ``scripts/snapshot_torch_models.py`` writes them."""
+    from quadruped_gym_tpu.models import spec as jspec
+
+    with open(os.path.join(ASSETS, "quadruped.xml")) as f:
+        xml = f.read().replace('meshdir="./mesh" texturedir="./textures"',
+                               f'meshdir="{ASSETS}/mesh" '
+                               f'texturedir="{ASSETS}/textures"')
+    for old, new in LAYOUTS[layout]:
+        assert old in xml, old
+        xml = xml.replace(old, new)
+    (tmp_path / "quadruped.xml").write_text(xml)
+    with open(os.path.join(ASSETS, "scene.xml")) as f:
+        (tmp_path / "scene.xml").write_text(f.read())
+    jm = jspec.build_physics_model(
+        str(tmp_path / "scene.xml"),
+        collision_geom_prefixes=jspec.FEET_COLLISION_PREFIXES)
+    tspec.save_model(jm, str(tmp_path / "m.npz"))
+    return jm, tspec.load_model(str(tmp_path / "m.npz"))
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_joint_layouts_match_live_jax(tmp_path, layout):
+    """One control step from a moving start pressed to the floor, on a
+    model whose joint layout the committed snapshots lack."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_gym_tpu.ops import lane_engine as jlane
+
+    jm, m = _layout_model(tmp_path, layout)
+    if layout == "hinges":
+        assert 2 in m.body_jntnum and 0 in m.body_jntnum[1:]
+    else:
+        free = [j for j in range(m.njnt) if m.jnt_type[j] == 0]
+        assert max(m.jnt_dofadr[j] for j in free) == m.nv - 6
+    B = 2
+    rng = np.random.default_rng(3)
+    qpos = np.asarray(m.qpos0)[None] + 0.05 * rng.standard_normal((B, m.nq))
+    qpos[:, 2] = 0.03
+    batched = (qpos, 0.3 * rng.standard_normal((B, m.nv)),
+               np.zeros((B, m.na)), np.zeros(B),
+               np.zeros((B, m.nsensordata)))
+    ctrl = 0.3 * rng.standard_normal((m.nu, B))
+    with jax.disable_jit():
+        want = jlane.control_step(
+            jm, jlane.from_batched(*(jnp.asarray(x) for x in batched)),
+            jnp.asarray(ctrl), 1, 4, 8)
+    got = lane_engine.control_step(m, _state(batched), torch.as_tensor(ctrl),
+                                   1, 4, 8)
+    _assert_jax_close(got, {f: np.asarray(getattr(want, f))
+                            for f in FIELDS + ("time",)}, tol=1e-10)
+    free = lane_engine.step(m, _state(batched), torch.as_tensor(ctrl), 0, 0)
+    assert float((free.qvel - got.qvel).abs().max()) > 1e-2  # in contact

@@ -16,20 +16,40 @@ from quadruped_gym_tpu_torch.models import spec as tspec
 from quadruped_gym_tpu_torch.tasks import commands as tcommands
 from quadruped_gym_tpu_torch.tasks import rewards as trewards
 
-MODELS = ("planning", "fast_plant", "mpc_plant", "full", "fast_plant_nsec32")
-# how the JAX package builds the model each snapshot holds
-JAX_MODELS = {
-    "planning": jspec.get_planning_model,
-    "fast_plant": jspec.get_fast_plant_model,
-    "mpc_plant": lambda: jspec.get_model(
+MODELS = ("planning", "fast_plant", "mpc_plant", "full", "fast_plant_nsec32",
+          "feet")
+# case -> (the JAX package's model, the port's): the snapshots by name, the
+# decimated models through the getters' keywords
+CASES = {
+    "planning": (jspec.get_planning_model, tspec.get_planning_model),
+    "planning_64": (lambda: jspec.get_planning_model(64),
+                    lambda: tspec.get_planning_model(64)),
+    "fast_plant": (jspec.get_fast_plant_model, tspec.get_fast_plant_model),
+    "fast_plant_nsec16": (
+        lambda: jspec.get_fast_plant_model(n_secondary=16),
+        lambda: tspec.get_fast_plant_model(n_secondary=16)),
+    "fast_plant_nsec_none": (
+        lambda: jspec.get_fast_plant_model(n_secondary=None),
+        lambda: tspec.get_fast_plant_model(n_secondary=None)),
+    "fast_plant_ndir96": (
+        lambda: jspec.get_fast_plant_model(n_directions=96),
+        lambda: tspec.get_fast_plant_model(n_directions=96)),
+    "mpc_plant": (lambda: jspec.get_model(
         collision_geom_prefixes=jspec.MPC_COLLISION_PREFIXES),
-    "full": jspec.get_model,
-    "fast_plant_nsec32": lambda: jspec.get_fast_plant_model(n_secondary=32),
+        tspec.get_mpc_plant_model),
+    "full": (jspec.get_model, tspec.get_full_model),
+    "fast_plant_nsec32": (
+        lambda: jspec.get_fast_plant_model(n_secondary=32),
+        lambda: tspec.get_fast_plant_model(n_secondary=32)),
+    "feet": (lambda: jspec.get_model(
+        collision_geom_prefixes=jspec.FEET_COLLISION_PREFIXES),
+        lambda: tspec.get_snapshot("feet")),
 }
 
 
 def _pair(name):
-    return JAX_MODELS[name](), tspec.get_snapshot(name)
+    jax_model, port_model = CASES[name]
+    return jax_model(), port_model()
 
 
 def _assert_field_equal(name, a, b):
@@ -48,8 +68,10 @@ def _assert_field_equal(name, a, b):
         assert a == b, name
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", list(CASES))
 def test_snapshot_equals_jax_model(name):
+    """Field by field: the snapshots, and the decimated models the port
+    derives from them with the JAX package's ``decimate_hulls``."""
     jm, tm = _pair(name)
     for f in dataclasses.fields(jspec.PhysicsModel):
         a, b = getattr(jm, f.name), getattr(tm, f.name)
@@ -78,9 +100,10 @@ def test_collision_sets():
 
 
 def test_fast_plant_decimations():
-    """``n_secondary`` picks the snapshot: 32 shrinks only the ankle-servo
-    hulls (47 -> 18 vertices); the feet and shins keep theirs, and so the
-    contact slots a leg and the kernels' launch geometry stay."""
+    """``n_secondary`` decimates the shins and ankle servos: 32 shrinks only
+    the ankle-servo hulls (47 -> 18 vertices); the feet and shins keep
+    theirs, and so the contact slots a leg and the kernels' launch
+    geometry stay. Any other count builds too (16: JAX's model)."""
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
     m64, m32 = (tspec.get_fast_plant_model(n_secondary=n) for n in (64, 32))
@@ -96,8 +119,11 @@ def test_fast_plant_decimations():
                                         torch.float32, 1024)
             == cuda_engine.launch_geometry(cuda_engine.model_slots(m64),
                                            torch.float32, 1024))
-    with pytest.raises(ValueError, match="snapshot_torch_models"):
-        tspec.get_fast_plant_model(n_secondary=16)
+    m16 = tspec.get_fast_plant_model(n_secondary=16)
+    want = jspec.get_fast_plant_model(n_secondary=16)
+    for a, b in zip(want.col_hull_verts, m16.col_hull_verts):
+        assert np.array_equal(a, b)
+    assert m16 is tspec.get_fast_plant_model(n_secondary=16)  # cached
 
 
 def test_save_load_roundtrip(tmp_path):
