@@ -18,6 +18,7 @@ import torch
 from .._device import resolve_device
 from ..models.spec import PhysicsModel
 from ..tasks import walking
+from ..utils import profiling
 
 
 class VectorStepOutput(NamedTuple):
@@ -43,17 +44,18 @@ def _autoreset(m, cfg, out: walking.StepOutput, num_envs: int,
     the JAX package, fresh states are drawn for every environment each
     step (from ``generator``) and selected by ``done``; the estimator and
     the frozen control-cost reference survive the reset."""
-    fresh, fresh_obs = walking.reset(
-        m, cfg, num_envs, generator,
-        persistent=(out.state.est, out.state.rew))
-    done = out.terminated
-    return VectorStepOutput(
-        state=_select(done, fresh, out.state),
-        obs=_select(done, fresh_obs, out.obs),
-        reward=out.reward,
-        done=done,
-        reward_components=out.reward_components,
-    )
+    with profiling.span("vector_env.autoreset"):
+        fresh, fresh_obs = walking.reset(
+            m, cfg, num_envs, generator,
+            persistent=(out.state.est, out.state.rew))
+        done = out.terminated
+        return VectorStepOutput(
+            state=_select(done, fresh, out.state),
+            obs=_select(done, fresh_obs, out.obs),
+            reward=out.reward,
+            done=done,
+            reward_components=out.reward_components,
+        )
 
 
 def autoreset_step(
@@ -76,8 +78,9 @@ def batched_autoreset_step(
     """``autoreset_step`` with the physics through a batch-minor engine
     (see ``walking.batched_step`` for ``engine_impl``): the
     training-throughput path."""
-    out = walking.batched_step(m, cfg, st, action, engine_impl=engine_impl)
-    return _autoreset(m, cfg, out, action.shape[0], generator)
+    with profiling.span("vector_env.batched_autoreset_step"):
+        out = walking.batched_step(m, cfg, st, action, engine_impl=engine_impl)
+        return _autoreset(m, cfg, out, action.shape[0], generator)
 
 
 class VectorWalkingEnv:

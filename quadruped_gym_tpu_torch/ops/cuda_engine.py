@@ -47,6 +47,7 @@ from ..models.spec import (
     PhysicsModel,
 )
 from ..tasks.rewards import JOINT_CENTERS, SensorSlices
+from ..utils import profiling
 from . import _build
 from . import leg_engine as LE
 from .lane_engine import LaneState, _kb_from_solref, _np_quat_mat, _static
@@ -521,45 +522,51 @@ def fused_rollout_cost(
     optional ``DomainParams`` of (S,) lanes. CPU tensors go to the plain
     version; CUDA tensors to the kernel, which raises rather than fall
     back."""
-    if ctrl_seqs.device.type == "cpu":
-        return fused_rollout_cost_reference(
-            m, state0, ctrl_seqs, cmd, prev_ctrl0, frame_skip,
-            solver_iterations, ls_iterations, height, dp)
-    if ctrl_seqs.device.type != "cuda":
-        raise ValueError(f"unsupported device {ctrl_seqs.device}")
-    S, H, nu = ctrl_seqs.shape
-    dt, dev = ctrl_seqs.dtype, ctrl_seqs.device
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_rollout_cost takes float32/float64, got {dt}")
-    if nu != m.nu or nu != 12:
-        raise ValueError(f"ctrl_seqs last dim {nu} != 12 actuators")
-    if frame_skip < 1 or H < 1:
-        raise ValueError("frame_skip and the horizon must be >= 1")
+    with profiling.span("cuda_engine.fused_rollout_cost"):
+        if ctrl_seqs.device.type == "cpu":
+            return fused_rollout_cost_reference(
+                m, state0, ctrl_seqs, cmd, prev_ctrl0, frame_skip,
+                solver_iterations, ls_iterations, height, dp)
+        if ctrl_seqs.device.type != "cuda":
+            raise ValueError(f"unsupported device {ctrl_seqs.device}")
+        S, H, nu = ctrl_seqs.shape
+        dt, dev = ctrl_seqs.dtype, ctrl_seqs.device
+        if dt not in (torch.float32, torch.float64):
+            raise TypeError(
+                f"fused_rollout_cost takes float32/float64, got {dt}")
+        if nu != m.nu or nu != 12:
+            raise ValueError(f"ctrl_seqs last dim {nu} != 12 actuators")
+        if frame_skip < 1 or H < 1:
+            raise ValueError("frame_skip and the horizon must be >= 1")
 
-    def vec(x, n):
-        x = torch.as_tensor(x).to(device=dev, dtype=dt).contiguous()
-        if x.shape != (n,):
-            raise ValueError(f"expected shape ({n},), got {tuple(x.shape)}")
-        return x
+        def vec(x, n):
+            x = torch.as_tensor(x).to(device=dev, dtype=dt).contiguous()
+            if x.shape != (n,):
+                raise ValueError(
+                    f"expected shape ({n},), got {tuple(x.shape)}")
+            return x
 
-    qpos, qvel = vec(state0.qpos, m.nq), vec(state0.qvel, m.nv)
-    act, prev = vec(state0.act, m.na), vec(prev_ctrl0, nu)
-    seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
-    cmd_scal = command_scalars(cmd, dt).to(dev).contiguous()
-    lanes = _dp_lanes(dp, S, dt, dev)
-    model = _model_buffer(m, dt, dev)
-    geo = launch_geometry(model_slots(m), dt, S)
-    lib = _library(KERNEL_SOURCE, dt)
-    out = torch.empty(S, dtype=dt, device=dev)
-    err = lib.qg_fused_rollout(
-        model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(), act.data_ptr(),
-        seqs.data_ptr(), prev.data_ptr(), cmd_scal.data_ptr(),
-        *[0 if v is None else v.data_ptr() for v in lanes],
-        out.data_ptr(), S, H, frame_skip, solver_iterations, ls_iterations,
-        float(height), *geo, torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(err, "fused_rollout_cost", geo)
-    launch_counts["fused_rollout_cost"] += 1
-    return out
+        qpos, qvel = vec(state0.qpos, m.nq), vec(state0.qvel, m.nv)
+        act, prev = vec(state0.act, m.na), vec(prev_ctrl0, nu)
+        seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
+        cmd_scal = command_scalars(cmd, dt).to(dev).contiguous()
+        lanes = _dp_lanes(dp, S, dt, dev)
+        model = _model_buffer(m, dt, dev)
+        geo = launch_geometry(model_slots(m), dt, S)
+        lib = _library(KERNEL_SOURCE, dt)
+        out = torch.empty(S, dtype=dt, device=dev)
+        args = (model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
+                act.data_ptr(), seqs.data_ptr(), prev.data_ptr(),
+                cmd_scal.data_ptr(),
+                *[0 if v is None else v.data_ptr() for v in lanes],
+                out.data_ptr(), S, H, frame_skip, solver_iterations,
+                ls_iterations, float(height), *geo,
+                torch.cuda.current_stream(dev).cuda_stream)
+        with profiling.span("cuda_engine.launch"):
+            err = lib.qg_fused_rollout(*args)
+        _check_launch(err, "fused_rollout_cost", geo)
+        launch_counts["fused_rollout_cost"] += 1
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -623,13 +630,15 @@ def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
     lib = _library(SUBSTEP_SOURCE, dt)
     qpos_o, qvel_o, act_o = (torch.empty_like(x) for x in (qpos, qvel, act))
     sens_o = torch.empty((m.nsensordata, B), dtype=dt, device=dev)
-    err = lib.qg_substeps(
-        model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(), act.data_ptr(),
-        ctrl.data_ptr(), *[0 if v is None else v.data_ptr() for v in lanes],
-        qpos_o.data_ptr(), qvel_o.data_ptr(), act_o.data_ptr(),
-        sens_o.data_ptr(), B, nsub, solver_iterations, ls_iterations,
-        int(bool(compute_sensors)), *geo,
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
+            act.data_ptr(), ctrl.data_ptr(),
+            *[0 if v is None else v.data_ptr() for v in lanes],
+            qpos_o.data_ptr(), qvel_o.data_ptr(), act_o.data_ptr(),
+            sens_o.data_ptr(), B, nsub, solver_iterations, ls_iterations,
+            int(bool(compute_sensors)), *geo,
+            torch.cuda.current_stream(dev).cuda_stream)
+    with profiling.span("cuda_engine.launch"):
+        err = lib.qg_substeps(*args)
     _check_launch(err, "substep kernel", geo)
     launch_counts["substep"] += 1
     time = ls.time
@@ -663,11 +672,12 @@ def control_step(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
     the last, in ONE kernel launch: the state stays in registers between
     the substeps. CPU tensors go to the plain version; CUDA tensors to the
     kernel, which raises rather than fall back."""
-    if ls.qpos.device.type == "cpu":
-        return control_step_reference(m, ls, ctrl, frame_skip,
-                                      solver_iterations, ls_iterations, dp)
-    return _launch_substeps(m, ls, ctrl, frame_skip, solver_iterations,
-                            ls_iterations, dp, True)
+    with profiling.span("cuda_engine.control_step"):
+        if ls.qpos.device.type == "cpu":
+            return control_step_reference(m, ls, ctrl, frame_skip,
+                                          solver_iterations, ls_iterations, dp)
+        return _launch_substeps(m, ls, ctrl, frame_skip, solver_iterations,
+                                ls_iterations, dp, True)
 
 
 # --------------------------------------------------------------------------

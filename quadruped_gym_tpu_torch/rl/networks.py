@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,13 +100,14 @@ def value(net: ActorCritic, obs: torch.Tensor) -> torch.Tensor:
 def sample_action(net: ActorCritic, obs: torch.Tensor,
                   generator: torch.Generator):
     """(action, log_prob) under the diagonal Gaussian policy."""
-    mean = actor_mean(net, obs)
-    std = torch.exp(net.log_std)
-    eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                      device=mean.device)
-    action = mean + std * eps
-    logp = gaussian_log_prob(mean, net.log_std, action)
-    return action, logp
+    with profiling.span("networks.sample_action"):
+        mean = actor_mean(net, obs)
+        std = torch.exp(net.log_std)
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                          device=mean.device)
+        action = mean + std * eps
+        logp = gaussian_log_prob(mean, net.log_std, action)
+        return action, logp
 
 
 def gaussian_log_prob(mean, log_std, action):

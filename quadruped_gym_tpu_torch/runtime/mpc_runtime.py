@@ -25,6 +25,7 @@ from ..solvers import mppi as mppi_mod
 from ..solvers import rollout as rollout_mod
 from ..solvers import sqp as sqp_mod
 from ..tasks.commands import Command
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,33 +120,34 @@ def plan_and_act(
     """One MPC solve: returns (ctrl_to_apply, new_carry, info_dict). The
     carry's generator advances in place (the sampling solvers draw from
     it)."""
-    if cfg.solver == "mppi":
-        res = mppi_mod.plan(m, cfg.mppi, cost_fn, phys, carry.mean, cmd,
-                            carry.prev_ctrl, carry.generator)
-        mean, sigma = res.mean, carry.sigma
-        info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
-    elif cfg.solver == "cem":
-        res = cem_mod.plan(m, cfg.cem, cost_fn, phys, carry.mean, cmd,
-                           carry.prev_ctrl, carry.generator,
-                           sigma=carry.sigma)
-        mean, sigma = res.mean, res.sigma
-        info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
-    elif cfg.solver in ("sqp", "ilqr"):
-        # receding-horizon gradient MPC: the shifted incumbent is the warm
-        # start, refined by the config's few iterations per period
-        mod = sqp_mod if cfg.solver == "sqp" else ilqr_mod
-        res = mod.solve(m, getattr(cfg, cfg.solver), cost_fn, phys,
-                        carry.mean, cmd, carry.prev_ctrl)
-        mean, sigma = res.ctrl_seq, carry.sigma
-        info = {"best_cost": res.cost, "mean_cost": res.initial_cost}
-    else:
-        raise ValueError(cfg.solver)
-    ctrl = mean[0]
-    # receding-horizon shift: roll the plan left, repeat the last step
-    mean = torch.cat([mean[1:], mean[-1:]], dim=0)
-    new_carry = MPCCarry(mean=mean, sigma=sigma, prev_ctrl=ctrl,
-                         generator=carry.generator)
-    return ctrl, new_carry, info
+    with profiling.span("plan_and_act"):
+        if cfg.solver == "mppi":
+            res = mppi_mod.plan(m, cfg.mppi, cost_fn, phys, carry.mean, cmd,
+                                carry.prev_ctrl, carry.generator)
+            mean, sigma = res.mean, carry.sigma
+            info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
+        elif cfg.solver == "cem":
+            res = cem_mod.plan(m, cfg.cem, cost_fn, phys, carry.mean, cmd,
+                               carry.prev_ctrl, carry.generator,
+                               sigma=carry.sigma)
+            mean, sigma = res.mean, res.sigma
+            info = {"best_cost": res.best_cost, "mean_cost": res.mean_cost}
+        elif cfg.solver in ("sqp", "ilqr"):
+            # receding-horizon gradient MPC: the shifted incumbent is the warm
+            # start, refined by the config's few iterations per period
+            mod = sqp_mod if cfg.solver == "sqp" else ilqr_mod
+            res = mod.solve(m, getattr(cfg, cfg.solver), cost_fn, phys,
+                            carry.mean, cmd, carry.prev_ctrl)
+            mean, sigma = res.ctrl_seq, carry.sigma
+            info = {"best_cost": res.cost, "mean_cost": res.initial_cost}
+        else:
+            raise ValueError(cfg.solver)
+        ctrl = mean[0]
+        # receding-horizon shift: roll the plan left, repeat the last step
+        mean = torch.cat([mean[1:], mean[-1:]], dim=0)
+        new_carry = MPCCarry(mean=mean, sigma=sigma, prev_ctrl=ctrl,
+                             generator=carry.generator)
+        return ctrl, new_carry, info
 
 
 def _stack_traj(rows):

@@ -19,6 +19,7 @@ import torch
 from ..models.spec import PhysicsModel
 from ..physics.engine import State
 from ..tasks.commands import Command
+from ..utils import profiling
 from . import rollout as rollout_mod
 
 
@@ -95,17 +96,22 @@ def plan(
     prev_ctrl: torch.Tensor,  # (nu,)
     generator: torch.Generator,
 ) -> PlanResult:
-    dtype, dev = mean.dtype, mean.device
-    lo, hi = _ctrl_bounds(m, dtype, dev)
-    S = cfg.num_samples
-    H, nu = mean.shape
-    stats = None
-    for _ in range(cfg.iterations):
-        eps = cfg.sigma * torch.randn((S, H, nu), generator=generator,
-                                      dtype=dtype, device=dev)
-        seqs = torch.clamp(mean[None] + eps, lo, hi)
-        costs = _rollout_costs(m, cfg, cost_fn, state, seqs, cmd, prev_ctrl)
-        mean, *stats = weighted_update(seqs, costs, cfg.temperature)
-    best, mean_c, ent = stats
-    return PlanResult(mean=mean, best_cost=best, mean_cost=mean_c,
-                      weights_entropy=ent)
+    with profiling.span("mppi.plan"):
+        dtype, dev = mean.dtype, mean.device
+        S = cfg.num_samples
+        H, nu = mean.shape
+        lo = hi = stats = None
+        for _ in range(cfg.iterations):
+            with profiling.span("mppi.sample"):
+                if lo is None:
+                    lo, hi = _ctrl_bounds(m, dtype, dev)
+                eps = cfg.sigma * torch.randn((S, H, nu), generator=generator,
+                                              dtype=dtype, device=dev)
+                seqs = torch.clamp(mean[None] + eps, lo, hi)
+            costs = _rollout_costs(m, cfg, cost_fn, state, seqs, cmd,
+                                   prev_ctrl)
+            with profiling.span("mppi.weighted_update"):
+                mean, *stats = weighted_update(seqs, costs, cfg.temperature)
+        best, mean_c, ent = stats
+        return PlanResult(mean=mean, best_cost=best, mean_cost=mean_c,
+                          weights_entropy=ent)

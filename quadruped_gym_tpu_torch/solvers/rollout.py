@@ -18,6 +18,7 @@ from ..physics import engine
 from ..physics.engine import State
 from ..tasks import rewards
 from ..tasks.commands import Command
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,62 +161,63 @@ def lane_batched_rollout_cost(
     other three need the feet-only collision model
     (``leg_engine.is_compatible``) and fall back to it, with a warning,
     on any other. ``dp`` needs one of those three."""
-    from ..ops import cuda_engine, lane_engine, leg_engine
+    with profiling.span("rollout.lane_batched_rollout_cost"):
+        from ..ops import cuda_engine, lane_engine, leg_engine
 
-    if engine_impl not in ("lane", "leg", "pallas", "fused"):
-        raise ValueError(
-            f"unknown engine_impl {engine_impl!r}; "
-            "valid: 'lane', 'leg', 'pallas', 'fused'"
-        )
-    if engine_impl != "lane" and not leg_engine.is_compatible(m):
-        warnings.warn(
-            f"engine_impl={engine_impl!r} needs the feet-only "
-            "collision model (leg_engine.is_compatible); falling "
-            "back to the slower lane engine",
-            stacklevel=2,
-        )
-        engine_impl = "lane"
-    if dp is not None and engine_impl == "lane":
-        raise ValueError(
-            "DomainParams require the leg/pallas/fused engines "
-            "(feet-only collision model)"
-        )
-    if engine_impl == "fused":
-        if not getattr(cost_fn, "_is_walking_stage_cost", False):
+        if engine_impl not in ("lane", "leg", "pallas", "fused"):
             raise ValueError(
-                "engine_impl='fused' hard-wires the walking stage cost "
-                "inside the kernel; a custom cost_fn would be silently "
-                "ignored. Use make_cost_fn(m), or engine_impl='pallas' "
-                "for custom costs."
+                f"unknown engine_impl {engine_impl!r}; "
+                "valid: 'lane', 'leg', 'pallas', 'fused'"
             )
-        return cuda_engine.fused_rollout_cost(
-            m, state0, ctrl_seqs, cmd, prev_ctrl0, cfg.frame_skip,
-            solver_iterations=newton_iterations,
-            ls_iterations=ls_iterations, dp=dp,
-        )
+        if engine_impl != "lane" and not leg_engine.is_compatible(m):
+            warnings.warn(
+                f"engine_impl={engine_impl!r} needs the feet-only "
+                "collision model (leg_engine.is_compatible); falling "
+                "back to the slower lane engine",
+                stacklevel=2,
+            )
+            engine_impl = "lane"
+        if dp is not None and engine_impl == "lane":
+            raise ValueError(
+                "DomainParams require the leg/pallas/fused engines "
+                "(feet-only collision model)"
+            )
+        if engine_impl == "fused":
+            if not getattr(cost_fn, "_is_walking_stage_cost", False):
+                raise ValueError(
+                    "engine_impl='fused' hard-wires the walking stage cost "
+                    "inside the kernel; a custom cost_fn would be silently "
+                    "ignored. Use make_cost_fn(m), or engine_impl='pallas' "
+                    "for custom costs."
+                )
+            return cuda_engine.fused_rollout_cost(
+                m, state0, ctrl_seqs, cmd, prev_ctrl0, cfg.frame_skip,
+                solver_iterations=newton_iterations,
+                ls_iterations=ls_iterations, dp=dp,
+            )
 
-    S, H, nu = ctrl_seqs.shape
-    dt = ctrl_seqs.dtype
+        S, H, nu = ctrl_seqs.shape
+        dt = ctrl_seqs.dtype
 
-    def lanes(x):
-        return x.to(dt)[:, None].expand(x.shape[0], S)
+        def lanes(x):
+            return x.to(dt)[:, None].expand(x.shape[0], S)
 
-    ls = lane_engine.LaneState(
-        qpos=lanes(state0.qpos), qvel=lanes(state0.qvel),
-        act=lanes(state0.act), time=state0.time.to(dt).expand(S),
-        sensordata=lanes(state0.sensordata))
-    seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
-    prev = lanes(prev_ctrl0)
-    total = torch.zeros(S, dtype=dt, device=ctrl_seqs.device)
-    eng = {"pallas": cuda_engine, "leg": leg_engine,
-           "lane": lane_engine}[engine_impl]
-    kw = {} if dp is None else {"dp": dp}
-    for t in range(H):
-        ls = eng.control_step(
-            m, ls, seqs[t], cfg.frame_skip,
-            solver_iterations=newton_iterations,
-            ls_iterations=ls_iterations, **kw,
-        )
-        total = total + cost_fn(ls.sensordata, seqs[t], prev, cmd)
-        prev = seqs[t]
-    return total
+        ls = lane_engine.LaneState(
+            qpos=lanes(state0.qpos), qvel=lanes(state0.qvel),
+            act=lanes(state0.act), time=state0.time.to(dt).expand(S),
+            sensordata=lanes(state0.sensordata))
+        seqs = ctrl_seqs.permute(1, 2, 0).contiguous()  # (H, nu, S)
+        prev = lanes(prev_ctrl0)
+        total = torch.zeros(S, dtype=dt, device=ctrl_seqs.device)
+        eng = {"pallas": cuda_engine, "leg": leg_engine,
+               "lane": lane_engine}[engine_impl]
+        kw = {} if dp is None else {"dp": dp}
+        for t in range(H):
+            ls = eng.control_step(
+                m, ls, seqs[t], cfg.frame_skip,
+                solver_iterations=newton_iterations,
+                ls_iterations=ls_iterations, **kw,
+            )
+            total = total + cost_fn(ls.sensordata, seqs[t], prev, cmd)
+            prev = seqs[t]
+        return total

@@ -36,6 +36,7 @@ from ..models.spec import PhysicsModel
 from ..physics import engine
 from ..physics.engine import State, make_state
 from . import commands, estimator, observations, rewards
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,66 +183,69 @@ def _task_step(
     """One control step of every environment; ``physics(phys, ctrl)``
     advances the (N, ...) physics state a control period under the
     clipped (N, nu) controls."""
-    dt = cfg.dtype
-    sl = rewards.SensorSlices.from_model(m)
-    cdt = cfg.control_dt(m)
-    N = action.shape[0]
+    with profiling.span("walking.task_step"):
+        dt = cfg.dtype
+        sl = rewards.SensorSlices.from_model(m)
+        cdt = cfg.control_dt(m)
+        N = action.shape[0]
 
-    # 1. ideal-position integration
-    ideal = state.ideal_position + state.cmd.global_velocity * cdt  # (N, 3)
+        # 1. ideal-position integration
+        # (N, 3)
+        ideal = state.ideal_position + state.cmd.global_velocity * cdt
 
-    # 2. estimator update on the PREVIOUS applied ctrl
-    est, f_est, a_est = estimator.update(state.est, state.applied_ctrl, cdt,
-                                         cfg.ema_alpha)
+        # 2. estimator update on the PREVIOUS applied ctrl
+        est, f_est, a_est = estimator.update(state.est, state.applied_ctrl,
+                                             cdt, cfg.ema_alpha)
 
-    # 3. settling mask
-    centers = rewards.joint_centers(dt, action.device)
-    action = torch.where((state.phys.time < cfg.settling_time)[:, None],
-                         centers[None], action)
+        # 3. settling mask
+        centers = rewards.joint_centers(dt, action.device)
+        action = torch.where((state.phys.time < cfg.settling_time)[:, None],
+                             centers[None], action)
 
-    # 4. clip + physics substeps
-    ctrl = clip_ctrl(m, action.to(dt))
-    phys = physics(state.phys, ctrl)
+        # 4. clip + physics substeps
+        ctrl = clip_ctrl(m, action.to(dt))
+        with profiling.span("walking.physics"):
+            phys = physics(state.phys, ctrl)
 
-    # 5. reward on post-step sensordata
-    out = rewards.input_control_reward(
-        phys.sensordata, ctrl, state.cmd, ideal, f_est, a_est, state.rew, sl,
-        cdt)
+        # 5. reward on post-step sensordata
+        out = rewards.input_control_reward(
+            phys.sensordata, ctrl, state.cmd, ideal, f_est, a_est, state.rew,
+            sl, cdt)
 
-    # 6. termination: flip OR time limit
-    terminated = (rewards.flip_termination(phys.sensordata.T, sl)
-                  | rewards.time_termination(phys.time, cfg.max_time))
+        # 6. termination: flip OR time limit
+        terminated = (rewards.flip_termination(phys.sensordata.T, sl)
+                      | rewards.time_termination(phys.time, cfg.max_time))
 
-    # 7. observation
-    if cfg.partial_obs:
-        frame, mad_q = observations.po_observation(
-            sl, phys.sensordata, ctrl, state.cmd, state.obs.mad_quat,
-            phys.time, cfg.settling_time, cdt,
+        # 7. observation
+        if cfg.partial_obs:
+            frame, mad_q = observations.po_observation(
+                sl, phys.sensordata, ctrl, state.cmd, state.obs.mad_quat,
+                phys.time, cfg.settling_time, cdt,
+            )
+            obs_carry = observations.PoObsCarry(
+                mad_quat=mad_q,
+                buffer=observations.stack_push(state.obs.buffer, frame))
+            obs = obs_carry.buffer.reshape(N, -1)
+        else:
+            obs_carry = state.obs
+            obs = phys.sensordata
+
+        new_state = WalkingState(
+            phys=phys,
+            cmd=state.cmd,
+            ideal_position=ideal,
+            est=est,
+            rew=out.carry,
+            obs=obs_carry,
+            applied_ctrl=ctrl,
         )
-        obs_carry = observations.PoObsCarry(
-            mad_quat=mad_q,
-            buffer=observations.stack_push(state.obs.buffer, frame))
-        obs = obs_carry.buffer.reshape(N, -1)
-    else:
-        obs_carry = state.obs
-        obs = phys.sensordata
-
-    new_state = WalkingState(
-        phys=phys,
-        cmd=state.cmd,
-        ideal_position=ideal,
-        est=est,
-        rew=out.carry,
-        obs=obs_carry,
-        applied_ctrl=ctrl,
-    )
-    return StepOutput(
-        state=new_state,
-        obs=obs,
-        reward=out.total,
-        terminated=terminated,
-        reward_components=out.components,
-    )
+        return StepOutput(
+            state=new_state,
+            obs=obs,
+            reward=out.total,
+            terminated=terminated,
+            reward_components=out.components,
+        )
 
 
 def step(m: PhysicsModel, cfg: WalkingConfig, state: WalkingState,
