@@ -55,7 +55,8 @@ Phases, each of which raises on failure (nothing is caught):
    64 elites, 3 iterations).
 6. env: the batched walking env at the width PPO uses: 2,048 envs on the
    fast-plant model, partial observation over 10 frames, ``reset`` and 50
-   ``batched_autoreset_step(engine_impl="pallas")`` under random actions.
+   ``batched_autoreset_step(engine_impl="pallas")`` under random actions:
+   one eager step, one capture of the step's CUDA graph, 48 replays.
 7. lane: the lane engine, the engine of every model that is not
    leg-compatible. (a) The JAX package's own unfused configuration
    (``scripts/latency_report.py``): ``lane_batched_rollout_cost(
@@ -1283,10 +1284,12 @@ def phase_plan(rec, periods=3):
 
 
 def phase_env(rec, steps=50, warm=10):
+    from quadruped_gym_tpu_torch.envs import vector_env
     from quadruped_gym_tpu_torch.envs.vector_env import VectorWalkingEnv
     from quadruped_gym_tpu_torch.envs.vector_env import batched_autoreset_step
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics import smooth
     from quadruped_gym_tpu_torch.tasks import walking
 
     dev, dt = torch.device("cuda"), torch.float32
@@ -1306,12 +1309,13 @@ def phase_env(rec, steps=50, warm=10):
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     n_done = torch.zeros((), dtype=torch.int64, device=dev)
     cuda_engine.reset_launch_counts()
+    vector_env.reset_graph_counts()
     t0 = None
     for k in range(steps):
         if k == warm:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        action = walking.clip_ctrl(m, 0.5 * torch.randn(
+        action = smooth.clip_ctrl(m, 0.5 * torch.randn(
             (N_ENVS, m.nu), generator=gen, dtype=dt, device=dev))
         out = batched_autoreset_step(m, cfg, state, action, env.generator,
                                      engine_impl="pallas")
@@ -1328,7 +1332,10 @@ def phase_env(rec, steps=50, warm=10):
         state = out.state
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    # B2 runs once a step: launched by its wrapper on the eager and the
+    # capturing call, inside the graph on every replay
     launches = cuda_engine.launch_counts[SUBSTEP]
+    graphs = dict(vector_env.graph_counts)
     if (out.obs.shape != (N_ENVS, 260) or out.reward.shape != (N_ENVS,)
             or out.reward_components.shape != (N_ENVS, 11)
             or out.done.dtype != torch.bool or out.obs.dtype != dt):
@@ -1338,19 +1345,20 @@ def phase_env(rec, steps=50, warm=10):
                              "whose time did not advance by a control step")
     if int(n_done) == 0:
         raise AssertionError("env: no episode ended, auto-reset not driven")
-    if launches != steps or cuda_engine.launch_counts[ROLLOUT] != 0:
-        raise AssertionError(f"env: {launches} substep launches in {steps} "
-                             "steps")
+    if (graphs != {"captures": 1, "replays": steps - 2, "eager": 1}
+            or launches != 2 or cuda_engine.launch_counts[ROLLOUT] != 0):
+        raise AssertionError(f"env: {launches} substep launches and calls "
+                             f"{graphs} in {steps} steps")
     rec["env_steps_per_s"] = N_ENVS * (steps - warm) / elapsed
     rec["env_step_ms"] = 1e3 * elapsed / (steps - warm)
     counts = rec.setdefault("launches", {})
-    counts[SUBSTEP] = counts.get(SUBSTEP, 0) + launches
+    counts[SUBSTEP] = counts.get(SUBSTEP, 0) + launches + graphs["replays"]
     log(f"env: {N_ENVS} envs x {steps} batched_autoreset_step (fast plant, "
         f"frame_skip {cfg.frame_skip}, PO window {cfg.obs_window}, float32): "
         f"obs {tuple(out.obs.shape)}, mean reward "
         f"{float(out.reward.mean()):.3f}, {int(n_done)} resets, mean base z "
         f"{float(out.state.phys.qpos[:, 2].mean()):.4f}; substep launches "
-        f"{launches}; {rec['env_steps_per_s']:.1f} env-steps/s, "
+        f"{launches}, graph {graphs}; {rec['env_steps_per_s']:.1f} env-steps/s, "
         f"{rec['env_step_ms']:.3f} ms per step over the last "
         f"{steps - warm} steps (host clock, one synchronise at the end); "
         f"card: {rec['card']}")
@@ -1363,6 +1371,7 @@ def phase_lane(rec):
         VectorWalkingEnv, batched_autoreset_step)
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine, lane_engine
+    from quadruped_gym_tpu_torch.physics import smooth
     from quadruped_gym_tpu_torch.physics.engine import make_state
     from quadruped_gym_tpu_torch.solvers import rollout
     from quadruped_gym_tpu_torch.tasks import walking
@@ -1445,7 +1454,7 @@ def phase_lane(rec):
     st, obs = env.reset()
     times, bad = [], torch.zeros((), dtype=torch.int64, device=dev)
     for k in range(LANE_ENV_STEPS + 1):
-        action = walking.clip_ctrl(m, 0.5 * torch.randn(
+        action = smooth.clip_ctrl(m, 0.5 * torch.randn(
             (N_ENVS, m.nu), generator=agen, dtype=dt, device=dev))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1485,7 +1494,7 @@ def phase_lane(rec):
 
     # (c) one lane substep on full at this width, traced
     ls = lane_engine.from_batched(*st.phys)
-    ctrl = walking.clip_ctrl(m, torch.zeros((N_ENVS, m.nu), dtype=dt,
+    ctrl = smooth.clip_ctrl(m, torch.zeros((N_ENVS, m.nu), dtype=dt,
                                             device=dev)).T.contiguous()
     sub = []
     for _ in range(3):

@@ -7,13 +7,26 @@ frozen control-cost reference survive episode boundaries.
 ``autoreset_step`` (``lane_physics=False``) steps the physics on the
 oracle engine, ``batched_autoreset_step`` (``lane_physics=True``) through
 the batch-minor engines.
+
+On the substep kernel's route (CUDA tensors, ``engine_impl="pallas"`` on
+a leg-compatible model, nothing that requires grad, no capture under
+way) ``batched_autoreset_step`` is one CUDA graph replay: the first call
+of a step shape runs eagerly, the second captures the whole step (task
+layer, layout conversions, B2's launch, the auto-reset with its draws)
+and replays it, every later one replays it. ``graph_counts`` counts the
+three kinds of call. During a replay no Python of the step runs, so its
+inner spans (``walking.task_step``, ``vector_env.autoreset``, ...) are
+recorded on eager and capturing calls only; a replay records
+``vector_env.graph_replay``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import collections
+from typing import List, NamedTuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .._device import resolve_device
 from ..models.spec import PhysicsModel
@@ -70,6 +83,11 @@ def autoreset_step(
     return _autoreset(m, cfg, out, action.shape[0], generator)
 
 
+def _batched_autoreset_step(m, cfg, st, action, generator, engine_impl):
+    out = walking.batched_step(m, cfg, st, action, engine_impl=engine_impl)
+    return _autoreset(m, cfg, out, action.shape[0], generator)
+
+
 def batched_autoreset_step(
     m: PhysicsModel, cfg: walking.WalkingConfig, st: walking.WalkingState,
     action: torch.Tensor, generator: torch.Generator,
@@ -77,10 +95,138 @@ def batched_autoreset_step(
 ) -> VectorStepOutput:
     """``autoreset_step`` with the physics through a batch-minor engine
     (see ``walking.batched_step`` for ``engine_impl``): the
-    training-throughput path."""
+    training-throughput path. On the substep kernel's route it replays a
+    CUDA graph of the step (module docstring); the returned tensors are
+    the caller's own either way."""
+    from ..ops import cuda_engine
+
     with profiling.span("vector_env.batched_autoreset_step"):
-        out = walking.batched_step(m, cfg, st, action, engine_impl=engine_impl)
-        return _autoreset(m, cfg, out, action.shape[0], generator)
+        if walking.batched_engine(m, engine_impl) is cuda_engine:
+            leaves, spec = pytree.tree_flatten((st, action))
+            if _capturable(leaves, generator):
+                return _graph_step(m, cfg, leaves, spec, generator)
+        graph_counts["eager"] += 1
+        return _batched_autoreset_step(m, cfg, st, action, generator,
+                                       engine_impl)
+
+
+# --------------------------------------------------------------------------
+# the step as a CUDA graph
+
+# calls of batched_autoreset_step by kind: "captures" (captured, then
+# replayed once), "replays", "eager" (every other call, a step shape's
+# first on the graph route included); a run sets them to 0 and reads them
+graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+
+# the captured steps by ``graph_key``, the most recently used last; a key
+# seen once holds None (its first call ran eagerly, the warm-up)
+_MAX_GRAPHS = 4
+_graphs: "collections.OrderedDict[tuple, list]" = collections.OrderedDict()
+
+
+def reset_graph_counts() -> None:
+    for k in graph_counts:
+        graph_counts[k] = 0
+
+
+def _capturable(leaves, generator) -> bool:
+    """Whether a step on the substep kernel can be captured as it is
+    called: CUDA tensors on one device with the generator, nothing that
+    requires grad, no capture under way."""
+    dev, gdev = leaves[-1].device, generator.device
+    return (dev.type == "cuda" and gdev.type == "cuda"
+            and gdev.index in (None, dev.index)
+            and all(x.device == dev and not x.requires_grad for x in leaves)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def graph_key(m, cfg, leaves, generator) -> tuple:
+    """What fixes the captured work: the model (by identity; the cache
+    entry holds it, so the id is not reused), the task configuration, the
+    number of envs, the device, every input's shape and dtype (the action
+    last) and the generator."""
+    action = leaves[-1]
+    return (id(m), cfg, action.shape[0], action.device,
+            tuple((tuple(x.shape), x.dtype) for x in leaves), generator)
+
+
+def _by_dtype(tensors) -> List[List[torch.Tensor]]:
+    """``tensors`` in one list per dtype, the dtypes in order of first
+    appearance."""
+    groups = {}
+    for x in tensors:
+        groups.setdefault(x.dtype, []).append(x)
+    return list(groups.values())
+
+
+class _Packed:
+    """A list of tensors as views of one flat buffer per dtype."""
+
+    def __init__(self, tensors):
+        self.shapes = [x.shape for x in tensors]
+        self.dtypes = list(dict.fromkeys(x.dtype for x in tensors))
+        self.index = [[i for i, x in enumerate(tensors) if x.dtype == d]
+                      for d in self.dtypes]
+        self.sizes = [[self.shapes[i].numel() for i in idx]
+                      for idx in self.index]
+
+    def views(self, flats) -> List[torch.Tensor]:
+        out = [None] * len(self.shapes)
+        for flat, idx, sizes in zip(flats, self.index, self.sizes):
+            for i, part in zip(idx, torch.split_with_sizes(flat, sizes)):
+                out[i] = part.view(self.shapes[i])
+        return out
+
+
+class _StepGraph:
+    """One captured step: static inputs (the state's leaves and the
+    action), the graph, and its outputs packed inside the graph into one
+    flat buffer per dtype."""
+
+    def __init__(self, m, cfg, leaves, spec, generator):
+        static = [torch.empty_like(x) for x in leaves]
+        self.static = _by_dtype(static)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            st, action = pytree.tree_unflatten(static, spec)
+            outs, self.out_spec = pytree.tree_flatten(
+                _batched_autoreset_step(m, cfg, st, action, generator,
+                                        "pallas"))
+            self.outputs = _Packed(outs)
+            self.out_flats = [torch.cat([x.reshape(-1) for x in group])
+                              for group in _by_dtype(outs)]
+
+    def __call__(self, leaves) -> VectorStepOutput:
+        """Copy the inputs in, replay, copy the outputs out: a multi-tensor
+        copy and a clone per dtype around the replay."""
+        for dst, src in zip(self.static, _by_dtype(leaves)):
+            torch._foreach_copy_(dst, src)
+        self.graph.replay()
+        fresh = [flat.clone() for flat in self.out_flats]
+        return pytree.tree_unflatten(self.outputs.views(fresh), self.out_spec)
+
+
+def _graph_step(m, cfg, leaves, spec, generator) -> VectorStepOutput:
+    key = graph_key(m, cfg, leaves, generator)
+    with torch.cuda.device(leaves[-1].device):
+        if key not in _graphs:  # the warm-up: lazy set-up happens here
+            _graphs[key] = [m, None]  # m held: its id is in the key
+            while len(_graphs) > _MAX_GRAPHS:
+                _graphs.popitem(last=False)
+            graph_counts["eager"] += 1
+            st, action = pytree.tree_unflatten(leaves, spec)
+            return _batched_autoreset_step(m, cfg, st, action, generator,
+                                           "pallas")
+        _graphs.move_to_end(key)
+        entry = _graphs[key]
+        if entry[1] is None:
+            entry[1] = _StepGraph(m, cfg, leaves, spec, generator)
+            graph_counts["captures"] += 1
+        else:
+            graph_counts["replays"] += 1
+        with profiling.span("vector_env.graph_replay"):
+            return entry[1](leaves)
 
 
 class VectorWalkingEnv:

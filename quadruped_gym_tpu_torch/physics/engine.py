@@ -23,7 +23,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -54,10 +53,12 @@ class Forward(NamedTuple):
 
 
 def make_state(m: PhysicsModel, dtype=torch.float32, device=None) -> State:
-    """Default state: qpos0, zero velocity/activation (mj_resetData)."""
+    """Default state: qpos0, zero velocity/activation (mj_resetData). The
+    model's qpos0 is uploaded once (``smooth.consts``): no host-to-device
+    copy after the first call."""
     device = resolve_device(device)
     return State(
-        qpos=torch.as_tensor(np.asarray(m.qpos0), dtype=dtype, device=device),
+        qpos=smooth.consts(m, dtype, device).qpos0.clone(),
         qvel=torch.zeros(m.nv, dtype=dtype, device=device),
         act=torch.zeros(m.na, dtype=dtype, device=device),
         time=torch.zeros((), dtype=dtype, device=device),

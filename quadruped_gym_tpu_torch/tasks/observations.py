@@ -22,7 +22,7 @@ import torch
 from .._device import resolve_device
 from . import madgwick
 from .commands import Command, heading_theta
-from .rewards import SensorSlices
+from .rewards import SensorSlices, constant
 
 PO_OBS_DIM = 26
 
@@ -36,7 +36,7 @@ def po_init_carry(obs_window: int, dtype=torch.float32, device=None,
                   batch_shape=()) -> PoObsCarry:
     device = resolve_device(device)
     bs = tuple(batch_shape)
-    q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    q0 = constant((1.0, 0.0, 0.0, 0.0), dtype, device)
     return PoObsCarry(
         mad_quat=q0.expand(bs + (4,)).clone(),
         buffer=torch.zeros(bs + (obs_window, PO_OBS_DIM), dtype=dtype,

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._functorch.pyfunctorch import temporarily_clear_interpreter_stack
 
 from .._device import resolve_device
 from ..models.spec import PhysicsModel
@@ -79,8 +80,28 @@ class RewardCarry(NamedTuple):
     has_prev_derive: torch.Tensor  # (...,) bool
 
 
+# the task's constant vectors, by (values, dtype, device)
+_CONSTANTS: dict = {}
+
+
+def constant(values, dtype, device) -> torch.Tensor:
+    """The float64 ``values`` as a vector of ``dtype`` on ``device``,
+    uploaded once and shared by every later call (callers never write
+    into it): a step then makes no host-to-device copy, which a CUDA graph
+    could not capture. Built with every ``torch.func`` transform popped,
+    as ``physics.smooth.consts`` is."""
+    key = (tuple(float(v) for v in values), dtype, torch.device(device))
+    c = _CONSTANTS.get(key)
+    if c is None:
+        with temporarily_clear_interpreter_stack():
+            c = torch.as_tensor(np.asarray(key[0], np.float64), dtype=dtype,
+                                device=device)
+        _CONSTANTS[key] = c
+    return c
+
+
 def joint_centers(dtype, device, batch_shape=()) -> torch.Tensor:
-    c = torch.as_tensor(JOINT_CENTERS, dtype=dtype, device=device)
+    c = constant(JOINT_CENTERS, dtype, device)
     return c.expand(tuple(batch_shape) + (12,)).clone()
 
 
@@ -243,8 +264,7 @@ def body_height_cost(sens, sl: SensorSlices, height=0.12):
 
 
 def joint_posture_cost(ctrl, nu=12):
-    centers = torch.as_tensor(JOINT_CENTERS, dtype=ctrl.dtype,
-                              device=ctrl.device)
+    centers = constant(JOINT_CENTERS, ctrl.dtype, ctrl.device)
     return _norm0((ctrl - _bcast(centers, ctrl)) / nu)
 
 
@@ -260,9 +280,7 @@ def control_cost(ctrl, carry: RewardCarry, alpha=0.8):
 
 
 def _target(values, like: torch.Tensor) -> torch.Tensor:
-    t = torch.as_tensor(np.array(list(values) * 4), dtype=like.dtype,
-                        device=like.device)
-    return _bcast(t, like)
+    return _bcast(constant(list(values) * 4, like.dtype, like.device), like)
 
 
 def control_frequency_cost(f_est, nu=12, target=(1.0, 1.0, 0.0)):

@@ -28,12 +28,11 @@ import math
 import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..models.spec import PhysicsModel
-from ..physics import engine
+from ..physics import engine, smooth
 from ..physics.engine import State, make_state
 from . import commands, estimator, observations, rewards
 from ..utils import profiling
@@ -83,15 +82,6 @@ def obs_size(cfg: WalkingConfig, m: PhysicsModel) -> int:
     if cfg.partial_obs:
         return observations.PO_OBS_DIM * cfg.obs_window
     return m.nsensordata
-
-
-def clip_ctrl(m: PhysicsModel, ctrl: torch.Tensor) -> torch.Tensor:
-    """Clamp (..., nu) controls to the actuators' ctrlrange."""
-    lo = torch.as_tensor(np.asarray(m.actuator_ctrlrange[:, 0]),
-                         dtype=ctrl.dtype, device=ctrl.device)
-    hi = torch.as_tensor(np.asarray(m.actuator_ctrlrange[:, 1]),
-                         dtype=ctrl.dtype, device=ctrl.device)
-    return torch.clamp(ctrl, lo, hi)
 
 
 def _fresh_persistent(cfg: WalkingConfig, m: PhysicsModel, num_envs, device):
@@ -203,7 +193,7 @@ def _task_step(
                              centers[None], action)
 
         # 4. clip + physics substeps
-        ctrl = clip_ctrl(m, action.to(dt))
+        ctrl = smooth.clip_ctrl(m, action.to(dt))
         with profiling.span("walking.physics"):
             phys = physics(state.phys, ctrl)
 
@@ -264,6 +254,24 @@ def step(m: PhysicsModel, cfg: WalkingConfig, state: WalkingState,
     return _task_step(m, cfg, state, action, physics)
 
 
+def batched_engine(m: PhysicsModel, engine_impl: str):
+    """The engine module that ``batched_step`` runs for ``engine_impl`` on
+    ``m``: ``ops.cuda_engine`` for ``"pallas"`` on a leg-compatible model,
+    ``ops.leg_engine`` for ``"leg"`` and ``"auto"`` on one,
+    ``ops.lane_engine`` otherwise."""
+    from ..ops import cuda_engine, lane_engine, leg_engine
+
+    if engine_impl not in ("auto", "leg", "pallas", "lane"):
+        raise ValueError(f"unknown engine_impl {engine_impl!r}; "
+                         "valid: 'auto', 'leg', 'pallas', 'lane'")
+    if engine_impl == "pallas" and leg_engine.is_compatible(m):
+        return cuda_engine
+    if engine_impl == "leg" or (
+            engine_impl == "auto" and leg_engine.is_compatible(m)):
+        return leg_engine
+    return lane_engine
+
+
 def batched_step(
     m: PhysicsModel,
     cfg: WalkingConfig,
@@ -283,27 +291,18 @@ def batched_step(
     falls back to the lane engine. The Newton budget is a fixed iteration
     count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
     (or 4 when that is None)."""
-    from ..ops import cuda_engine, lane_engine, leg_engine
+    from ..ops import cuda_engine, lane_engine
 
-    if engine_impl not in ("auto", "leg", "pallas", "lane"):
-        raise ValueError(f"unknown engine_impl {engine_impl!r}; "
-                         "valid: 'auto', 'leg', 'pallas', 'lane'")
     if newton_iterations is None:
         newton_iterations = cfg.solver_iterations or 4
-    if engine_impl == "pallas" and leg_engine.is_compatible(m):
-        eng = cuda_engine
-    elif engine_impl == "leg" or (
-            engine_impl == "auto" and leg_engine.is_compatible(m)):
-        eng = leg_engine
-    else:
-        if engine_impl == "pallas":
-            warnings.warn(
-                "engine_impl='pallas' needs the feet-only collision model "
-                "(leg_engine.is_compatible); falling back to the slower "
-                "lane engine",
-                stacklevel=2,
-            )
-        eng = lane_engine
+    eng = batched_engine(m, engine_impl)
+    if engine_impl == "pallas" and eng is not cuda_engine:
+        warnings.warn(
+            "engine_impl='pallas' needs the feet-only collision model "
+            "(leg_engine.is_compatible); falling back to the slower "
+            "lane engine",
+            stacklevel=2,
+        )
 
     def physics(phys, ctrl):
         ls = lane_engine.from_batched(*phys)

@@ -400,3 +400,133 @@ def test_substep_kernel_matches_plain_version_on_card():
     assert float(none.sensordata.abs().max()) == 0.0
     with pytest.raises(ValueError, match="must be a"):
         cuda_engine.step(m, ls, ctrl.to(torch.float32))
+
+
+# --------------------------------------------------------------------------
+# the env step as a CUDA graph (envs/vector_env.py), on the card
+
+
+def _env_cell(max_time):
+    """The fast plant at 4/8 and the env cell's walking task (frame_skip
+    10, partial observations over 10 frames, random yaw and a fixed 0.3
+    m/s command), with episodes of ``max_time`` seconds."""
+    from quadruped_gym_tpu_torch.tasks import commands, walking
+
+    m = spec.get_fast_plant_model(n_directions=128, n_secondary=64)
+    cfg = walking.WalkingConfig(
+        max_time=max_time, frame_skip=10, obs_window=10, partial_obs=True,
+        random_controls=True, random_init=True,
+        reset_options=commands.SampleOptions.from_dict(dict(
+            fixed_heading_angle=0.0, fixed_velocity_angle=0.0,
+            fixed_speed=0.3)),
+        solver_iterations=4, dtype=torch.float32)
+    return m, cfg
+
+
+def _drawn(out):
+    """What a reset draws afresh: the state but the estimator's and the
+    reward's carries, which survive it, and the observation."""
+    s = out.state
+    return [*s.phys, *s.cmd, s.ideal_position, *s.obs, s.applied_ctrl,
+            out.obs]
+
+
+def _action(n, k, dev):
+    g = torch.Generator(device=dev).manual_seed(1000 + k)
+    return torch.clamp(torch.randn((n, 12), generator=g, device=dev), -1, 1)
+
+
+@pytest.mark.cuda
+def test_step_graph_matches_eager_on_card():
+    """50 steps of 2,048 envs through the graph against the eager step,
+    each generator reseeded before every step, episodes ending every 15-16
+    steps: ``done`` and every fresh draw equal, the rest bit for bit or
+    within 1e-6 relative (the test says which); the generator's state
+    after a replay equals its state after an eager step; a step's returned
+    tensors are unchanged 17 steps later; 1 eager warm-up, 1 capture and
+    48 replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python3 chip_smoke.py)")
+    from torch.utils import _pytree as pytree
+
+    from quadruped_gym_tpu_torch.envs import vector_env as V
+    from quadruped_gym_tpu_torch.tasks import walking
+
+    m, cfg = _env_cell(max_time=0.3)
+    n, steps, dev = 2048, 50, torch.device("cuda")
+    ggen, egen = (torch.Generator(device=dev) for _ in range(2))
+    ggen.manual_seed(11)
+    gst = est = walking.reset(m, cfg, n, ggen)[0]
+    V.reset_graph_counts()
+    exact, ended, kept = True, 0, None
+    with torch.no_grad():
+        for k in range(steps):
+            action = _action(n, k, dev)
+            ggen.manual_seed(2000 + k)
+            egen.manual_seed(2000 + k)
+            g = V.batched_autoreset_step(m, cfg, gst, action, ggen,
+                                         engine_impl="pallas")
+            e = V._batched_autoreset_step(m, cfg, est, action, egen, "pallas")
+            assert torch.equal(ggen.get_state(), egen.get_state()), k
+            assert torch.equal(g.done, e.done), k
+            done = e.done
+            ended += int(done.sum())
+            for a, b in zip(_drawn(g), _drawn(e)):
+                assert torch.equal(a[done], b[done]), k
+            for a, b in zip(pytree.tree_leaves(g), pytree.tree_leaves(e)):
+                if torch.equal(a, b):
+                    continue
+                exact = False
+                assert a.is_floating_point(), k
+                gap = float((a - b).abs().max())
+                assert gap <= 1e-6 * max(float(b.abs().max()), 1e-30), (k, gap)
+            if k == 10:
+                kept = (g, [x.clone() for x in pytree.tree_leaves(g)])
+            if k == 27:
+                for x, y in zip(pytree.tree_leaves(kept[0]), kept[1]):
+                    assert torch.equal(x, y)
+            gst, est = g.state, e.state
+    assert ended >= 2 * n  # episodes end every 15-16 steps
+    assert V.graph_counts == {"captures": 1, "replays": steps - 2, "eager": 1}
+    print("graph against eager:",
+          "bit for bit" if exact else "within 1e-6 relative")
+
+
+@pytest.mark.cuda
+def test_step_graph_recaptures_and_copies_nothing_on_card():
+    """A new number of envs captures a new graph; a replay issues no
+    host-to-device copy (the trace) and no synchronising PyTorch call
+    (``set_sync_debug_mode("error")``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python3 chip_smoke.py)")
+    from torch.profiler import ProfilerActivity, profile
+
+    from quadruped_gym_tpu_torch.envs import vector_env as V
+    from quadruped_gym_tpu_torch.tasks import walking
+
+    m, cfg = _env_cell(max_time=20.0)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    V.reset_graph_counts()
+    with torch.no_grad():
+        for n in (512, 300):
+            st = walking.reset(m, cfg, n, gen)[0]
+            for k in range(3):
+                st = V.batched_autoreset_step(m, cfg, st, _action(n, k, dev),
+                                              gen, engine_impl="pallas").state
+        assert V.graph_counts == {"captures": 2, "replays": 2, "eager": 2}
+        action = _action(300, 9, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    st = V.batched_autoreset_step(m, cfg, st, action, gen,
+                                                  engine_impl="pallas").state
+                torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert V.graph_counts["replays"] == 5
+    names = [ev.name for ev in prof.events()]
+    assert any("substep_kernel" in x for x in names)  # the graph's kernels
+    assert not [x for x in names if "HtoD" in x]
