@@ -41,7 +41,12 @@ Phases, each of which raises on failure (nothing is caught):
    4/8) and B2 (B=2,048, frame_skip 5, 4/8) on
    ``get_fast_plant_model(n_secondary=None)``, B1 (S=1,024, 2/4) on
    ``get_planning_model(n_directions=64)``, float32, each with its slot
-   budgets and launch geometry.
+   budgets and launch geometry. Both kernels on ``full``, whose base
+   (the frame and the hip servos) collides too: float64 from the base
+   pressed to 3 cm (the hip servos touch) and to the floor (the frame
+   too, with DomainParams), float32 at the env's width from a standing
+   start and from 3 cm (B2: at most 6 of 2,048 lanes may part, as the
+   plain version's float32 parts from its float64).
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -58,7 +63,8 @@ Phases, each of which raises on failure (nothing is caught):
    ``batched_autoreset_step(engine_impl="pallas")`` under random actions:
    one eager step, one capture of the step's CUDA graph, 48 replays.
 7. lane: the lane engine, the engine of every model that is not
-   leg-compatible. (a) The JAX package's own unfused configuration
+   leg-compatible and the reference of another structure for those that
+   are. (a) The JAX package's own unfused configuration
    (``scripts/latency_report.py``): ``lane_batched_rollout_cost(
    engine_impl="lane")`` on the planning model, S=4,096, H=50,
    frame_skip 5, 2/4, float32, one warm solve timed (synchronised), then
@@ -66,9 +72,12 @@ Phases, each of which raises on failure (nothing is caught):
    is printed, not gated). (b) ``VectorWalkingEnv(full,
    lane_physics=True)`` at the trainer's width: 2,048 envs, frame_skip
    10, 4 Newton passes, PO window 10, random commands, float32, through
-   ``batched_autoreset_step(engine_impl="pallas")``, which must warn and
-   fall back to the lane engine; reset, one step, 3 timed steps; obs,
-   rewards and qpos finite. (c) One lane substep on ``full`` at 2,048
+   ``batched_autoreset_step(engine_impl="pallas")``, which on ``full``
+   takes B2 and the step's CUDA graph (no fallback warning; one eager
+   step, one capture, replays); reset, 5 steps, the replays timed; obs,
+   rewards and qpos finite; then B2 against the lane engine on the
+   env's states on the card, one substep in float64 (1e-8) and the
+   env's control step in float32 (the gap printed, not gated). (c) One lane substep on ``full`` at 2,048
    envs traced (``torch.profiler``): kernels, device time, idle share.
 8. parallel: the parallel paths at one rank, a group of this process
    alone over NCCL (started here and destroyed at the end), each held to
@@ -315,8 +324,22 @@ LANE_CHECK_B = 256
 # (scripts/latency_report.py), (b) the trainer's env width on ``full``
 LANE_S, LANE_H, LANE_BUDGET = 4096, 50, (2, 4)
 LANE_ENV_FRAME_SKIP = 10
-LANE_ENV_STEPS = 3
+LANE_ENV_STEPS = 5
 LANE_ENV_BUDGET = (4, 8)
+# B2 against the lane engine on the env's states: one substep in float64
+# (the two engines group the same sums otherwise: ~1e-10 on the CPU)
+LANE_B2_F64_TOL = 1e-8
+LANE_B2_B = 256
+# base heights of start states on ``full``: the hip servos touch at 3 cm
+# ("low"), the frame too with the base on the floor ("belly")
+BASE_HEIGHTS = {"low": 0.03, "belly": 0.0}
+# B2 in float32 on ``full`` from "low" at 2,048 lanes, frame_skip 4: the
+# lanes that may part from the plain version past F32_TOL. On an H100
+# (seeds 29-31) the kernel parted in 1, 1, 0 lanes, the plain version in
+# float32 from itself in float64 in 1, 2, 3; a base group that is wrong
+# parts in the ~600 lanes whose hip servos touch. The limit is the
+# benchmark's envs_off_share, 0.3 % of 2,048.
+F32_FULL_LOW_LANES_OFF = 6
 # the parallel phase, at one rank over NCCL: (a) the main phase's solve
 # through sharded_mppi_plan, 3 solves; (b) BASELINE config 3's 4,096
 # rollouts a scenario over 16 scenarios on a (1, 1) data x sample mesh;
@@ -391,8 +414,9 @@ def log(*args):
 
 def start_state(m, kind: str, rng, dtype, device):
     """A shared start state near ``qpos0`` (perturbed so the base moves
-    from the first substep), grounded, 0.5 m up, or 2 m up ("high": in
-    the air for a whole H=50 rollout, whose 0.5 s fall 1.23 m)."""
+    from the first substep), grounded, 0.5 m up, 2 m up ("high": in
+    the air for a whole H=50 rollout, whose 0.5 s fall 1.23 m), or the
+    base at a height of ``BASE_HEIGHTS``."""
     from quadruped_gym_tpu_torch.physics.engine import State
 
     qpos = np.asarray(m.qpos0, np.float64) + 0.02 * rng.standard_normal(m.nq)
@@ -400,6 +424,8 @@ def start_state(m, kind: str, rng, dtype, device):
         qpos[2] += 0.5
     elif kind == "high":
         qpos[2] += 2.0
+    elif kind in BASE_HEIGHTS:
+        qpos[2] = BASE_HEIGHTS[kind]
     qvel = 0.1 * rng.standard_normal(m.nv)
     act = np.array([0.0, 0.0, -0.5] * 4)
 
@@ -473,7 +499,9 @@ def launch_report(rec):
             ("B2 planning", cuda_engine.SUBSTEP_SOURCE, "planning", S_MAIN),
             ("B2 fast_plant", cuda_engine.SUBSTEP_SOURCE, "fast_plant",
              S_MAIN),
-            ("B2 env", cuda_engine.SUBSTEP_SOURCE, "fast_plant", N_ENVS)):
+            ("B2 env", cuda_engine.SUBSTEP_SOURCE, "fast_plant", N_ENVS),
+            ("B1 full", cuda_engine.KERNEL_SOURCE, "full", S_MAIN),
+            ("B2 full env", cuda_engine.SUBSTEP_SOURCE, "full", N_ENVS)):
         m = getattr(spec, f"get_{model}_model")()
         nslot = cuda_engine.model_slots(m)
         geo = cuda_engine.launch_geometry(nslot, f32, n)
@@ -554,6 +582,8 @@ def lane_inputs(m, kind, B, rng, dtype, device):
         qpos[2] += 0.5
     elif kind == "contact":
         qpos[2] = 0.03
+    elif kind in BASE_HEIGHTS:
+        qpos[2] = BASE_HEIGHTS[kind]
     qvel = 0.1 * rng.standard_normal((m.nv, B))
     act = np.tile(np.array([0.0, 0.0, -0.5] * 4)[:, None], (1, B))
     ctrl = np.clip(act + 0.3 * rng.standard_normal((m.nu, B)), -1.0, 1.0)
@@ -568,10 +598,12 @@ def lane_inputs(m, kind, B, rng, dtype, device):
 
 
 def check_substep(rec, label, model, kind, B, nsub, budget, dtype, tol,
-                  dp_ranges=None, seed=0, single_step=False, sensors=True):
+                  dp_ranges=None, seed=0, single_step=False, sensors=True,
+                  lanes_off=0):
     """The substep kernel vs its plain version on the card, on the same
     inputs: qpos, qvel, act, time and every sensor; ``model`` as in
-    ``check_case``."""
+    ``check_case``. Up to ``lanes_off`` lanes may hold values outside
+    ``tol`` (float32 contact that parts chaotically between two orders)."""
     from quadruped_gym_tpu_torch.models import spec
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
@@ -598,14 +630,18 @@ def check_substep(rec, label, model, kind, B, nsub, budget, dtype, tol,
                                                  dp=dp)
     torch.cuda.synchronize()
     errs, n_bad = {}, 0
+    off = torch.zeros(B, dtype=torch.bool, device=dev)
     for f in got._fields:
         g, r = getattr(got, f), getattr(ref, f)
         if g.shape != r.shape or not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{label}: {f} has a wrong shape or is "
                                  "not finite")
         err = (g - r).abs()
-        n_bad += int((err > tol + tol * r.abs()).sum())
+        out = err > tol + tol * r.abs()
+        n_bad += int(out.sum())
+        off |= out.reshape(-1, B).any(0)
         errs[f] = float(err.max())
+    n_off = int(off.sum())
     if not sensors and float(got.sensordata.abs().max()) != 0.0:
         raise AssertionError(f"{label}: sensordata must be zeros")
     if sensors and float(got.sensordata.abs().min(dim=1).values.max()) == 0.0:
@@ -614,11 +650,12 @@ def check_substep(rec, label, model, kind, B, nsub, budget, dtype, tol,
     log(f"check substep {label}: B={B} {what} sensors={sensors} budget "
         f"{it}/{lsi} {dtype}: max_abs_err "
         + " ".join(f"{f} {e:.3e}" for f, e in errs.items())
-        + f" (rtol=atol={tol:g}); {n_bad} values outside; "
-        f"card: {rec['card']}")
-    if n_bad:
+        + f" (rtol=atol={tol:g}); {n_bad} values outside, in {n_off} of "
+        f"{B} lanes (at most {lanes_off}); card: {rec['card']}")
+    if n_off > lanes_off:
         raise AssertionError(f"{label}: the substep kernel disagrees with "
-                             f"its plain version ({n_bad} values)")
+                             f"its plain version ({n_bad} values in {n_off} "
+                             "lanes)")
     rec.setdefault("checks", {})[f"substep {label}"] = errs
     return max(errs.values())
 
@@ -636,6 +673,11 @@ def phase_check(rec):
                4096, 1, 3, (4, 8), f64, F64_TOL, dp_ranges=dp, seed=3)
     check_case(rec, "f64 fast_plant grounded", "fast_plant", "grounded",
                4096, 1, 5, (4, 8), f64, F64_TOL, seed=4)
+    # the full collision model: the hip servos, then the frame too, touch
+    check_case(rec, "f64 full low", "full", "low", 4096, 1, 5, (4, 8), f64,
+               F64_TOL, seed=23)
+    check_case(rec, "f64 full belly DomainParams", "full", "belly", 1024, 1,
+               3, (4, 8), f64, F64_TOL, dp_ranges=dp, seed=24)
     # S that no block size divides: the last block's spare quads run on a
     # clamped rollout and must store nothing
     check_case(rec, "f64 planning ragged S", "planning", "grounded",
@@ -691,6 +733,8 @@ def phase_check(rec):
                    study.num_samples, 1, study.rollout.frame_skip,
                    (study.lane_newton_iterations, study.lane_ls_iterations),
                    f32, F32_TOL, seed=22),
+        check_case(rec, "f32 full grounded", "full", "grounded", 4096, 1,
+                   FRAME_SKIP, BUDGET["fast_plant"], f32, F32_TOL, seed=27),
     )
     # the substep kernel: float64 at B around 4,096 (one B that 128 does
     # not divide), then float32 at the widths of its two main paths
@@ -702,6 +746,10 @@ def phase_check(rec):
                   4096, 3, (4, 8), f64, F64_TOL, dp_ranges=dp, seed=13)
     check_substep(rec, "f64 fast_plant grounded", "fast_plant", "grounded",
                   4096, 5, (4, 8), f64, F64_TOL, seed=14)
+    check_substep(rec, "f64 full low", "full", "low", 2048, 5, (4, 8), f64,
+                  F64_TOL, seed=25)
+    check_substep(rec, "f64 full belly DomainParams", "full", "belly", 1000,
+                  3, (4, 8), f64, F64_TOL, dp_ranges=dp, seed=26)
     check_substep(rec, "f64 planning no sensors", "planning", "grounded",
                   1000, 1, (4, 8), f64, F64_TOL, seed=15, single_step=True,
                   sensors=False)
@@ -715,7 +763,19 @@ def phase_check(rec):
         check_substep(rec, "f32 fast_plant grounded (env width)",
                       "fast_plant", "grounded", N_ENVS, ENV_FRAME_SKIP,
                       BUDGET["fast_plant"], f32, F32_TOL, seed=18),
+        check_substep(rec, "f32 full grounded (env width)", "full",
+                      "grounded", N_ENVS, ENV_FRAME_SKIP,
+                      BUDGET["fast_plant"], f32, F32_TOL, seed=28),
     )
+    # float32 on ``full`` with the base pressed to 3 cm, the hip servos in
+    # contact in ~30 % of the lanes: B1 agrees everywhere; B2 at the env's
+    # width parts in a few lanes, as the plain version in float32 parts
+    # from itself in float64 (``F32_FULL_LOW_LANES_OFF``)
+    check_case(rec, "f32 full low", "full", "low", 4096, 1, FRAME_SKIP,
+               BUDGET["fast_plant"], f32, F32_TOL, seed=29)
+    check_substep(rec, "f32 full low (env width)", "full", "low", N_ENVS,
+                  ENV_FRAME_SKIP, BUDGET["fast_plant"], f32, F32_TOL,
+                  seed=29, lanes_off=F32_FULL_LOW_LANES_OFF)
     check_decimations(rec)
     check_refused_launch(rec)
     check_oracle(rec)
@@ -1441,7 +1501,10 @@ def phase_lane(rec):
         f"relative difference median {float(rel.median()):.3e}, max "
         f"{float(rel.max()):.3e} (not gated); card: {rec['card']}")
 
-    # (b) VectorWalkingEnv(full, lane_physics=True) at the trainer's width
+    # (b) VectorWalkingEnv(full, lane_physics=True) at the trainer's width:
+    # B2 and the step's CUDA graph, held to the lane engine
+    from quadruped_gym_tpu_torch.envs import vector_env
+
     m = spec.get_full_model()
     ecfg = walking.WalkingConfig(
         frame_skip=LANE_ENV_FRAME_SKIP, partial_obs=True, obs_window=10,
@@ -1451,46 +1514,82 @@ def phase_lane(rec):
     agen = torch.Generator(device=dev)
     agen.manual_seed(53)
     cuda_engine.reset_launch_counts()
+    vector_env.reset_graph_counts()
     st, obs = env.reset()
     times, bad = [], torch.zeros((), dtype=torch.int64, device=dev)
-    for k in range(LANE_ENV_STEPS + 1):
-        action = smooth.clip_ctrl(m, 0.5 * torch.randn(
-            (N_ENVS, m.nu), generator=agen, dtype=dt, device=dev))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            res = batched_autoreset_step(m, ecfg, st, action, env.generator,
-                                         engine_impl="pallas")
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if not any("falling back to the slower lane engine" in str(w.message)
-                   for w in caught):
-            raise AssertionError("lane (b): engine_impl='pallas' on full did "
-                                 "not warn of the fallback")
-        for x in (res.obs, res.reward, res.state.phys.qpos):
-            bad = bad + (~torch.isfinite(x)).sum()
-        st = res.state
-    if launches() != (0, 0):
-        raise AssertionError(f"lane (b): kernel launches {launches()} (the "
-                             "fallback runs none)")
+    with torch.no_grad():
+        for k in range(LANE_ENV_STEPS):
+            action = smooth.clip_ctrl(m, 0.5 * torch.randn(
+                (N_ENVS, m.nu), generator=agen, dtype=dt, device=dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = batched_autoreset_step(m, ecfg, st, action,
+                                             env.generator,
+                                             engine_impl="pallas")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if any("falling back" in str(w.message) for w in caught):
+                raise AssertionError("lane (b): engine_impl='pallas' on full "
+                                     "fell back")
+            for x in (res.obs, res.reward, res.state.phys.qpos):
+                bad = bad + (~torch.isfinite(x)).sum()
+            st_before, action_before, st = st, action, res.state
+    graphs = dict(vector_env.graph_counts)
+    want = {"captures": 1, "replays": LANE_ENV_STEPS - 2, "eager": 1}
+    if graphs != want or launches() != (0, 2):
+        raise AssertionError(f"lane (b): graph counts {graphs}, B1/B2 "
+                             f"wrapper launches {launches()} (want {want}, "
+                             "(0, 2))")
     if int(bad) or res.obs.shape != (N_ENVS, env.obs_size):
         raise AssertionError(f"lane (b): {int(bad)} non-finite values or "
                              f"obs {tuple(res.obs.shape)}")
-    step_s = float(np.median(times[1:]))
+    # B2 once a step, as in the env phase (the comparison below not counted)
+    counts = rec.setdefault("launches", {})
+    counts[SUBSTEP] = counts.get(SUBSTEP, 0) + launches()[1] + graphs["replays"]
+    step_s = float(np.median(times[2:]))
+    # B2 against the lane engine on the last step's inputs
+    ls32 = lane_engine.from_batched(*st_before.phys)
+    ctrl32 = smooth.clip_ctrl(m, action_before.to(dt)).T.contiguous()
+    sub = lambda x: type(x)(*(y[..., :LANE_B2_B].double().contiguous()  # noqa: E731
+                              for y in x))
+    ls64 = sub(ls32)
+    ctrl64 = ctrl32[:, :LANE_B2_B].double().contiguous()
+    got = cuda_engine.step(m, ls64, ctrl64, *LANE_ENV_BUDGET)
+    ref = lane_engine.step(m, ls64, ctrl64, *LANE_ENV_BUDGET)
+    torch.cuda.synchronize()
+    n_bad, errs = 0, {}
+    for f in ("qpos", "qvel", "act", "sensordata"):
+        g, r = getattr(got, f), getattr(ref, f)
+        e = (g - r).abs()
+        n_bad += int((e > LANE_B2_F64_TOL + LANE_B2_F64_TOL * r.abs()).sum())
+        errs[f] = float(e.max())
+    if n_bad:
+        raise AssertionError(f"lane (b): B2 against the lane engine, float64: "
+                             f"{n_bad} values outside {LANE_B2_F64_TOL:g} "
+                             f"({errs})")
+    g32 = cuda_engine.control_step(m, ls32, ctrl32.contiguous(),
+                                   LANE_ENV_FRAME_SKIP, *LANE_ENV_BUDGET)
+    r32 = lane_engine.control_step(m, ls32, ctrl32.contiguous(),
+                                   LANE_ENV_FRAME_SKIP, *LANE_ENV_BUDGET)
+    gap32 = float((g32.qpos - r32.qpos).abs().max())
     out["env"] = {"step_s": times, "median_step_s": step_s,
-                  "substep_ms": 1e3 * step_s / LANE_ENV_FRAME_SKIP,
-                  "env_steps_per_s": N_ENVS / step_s}
+                  "env_steps_per_s": N_ENVS / step_s, "graph_counts": graphs,
+                  "b2_vs_lane_f64": errs, "b2_vs_lane_f32_qpos": gap32}
     log(f"lane (b) VectorWalkingEnv(full, lane_physics=True) {N_ENVS} envs, "
         f"frame_skip {LANE_ENV_FRAME_SKIP}, {LANE_ENV_BUDGET[0]} Newton "
-        f"passes, PO window 10, float32, engine_impl='pallas' warned and "
-        f"fell back: {step_s:.4f} s per env step (median of "
-        f"{LANE_ENV_STEPS} after 1, host clock, synchronised; each "
+        f"passes, PO window 10, float32, engine_impl='pallas': B2 through "
+        f"the step's CUDA graph ({graphs}); {step_s:.4f} s per env step "
+        f"(median of the replays, host clock, synchronised; each "
         + ", ".join(f"{x:.4f}" for x in times) + f" s) = "
-        f"{1e3 * step_s / LANE_ENV_FRAME_SKIP:.2f} ms per substep, "
         f"{N_ENVS / step_s:.1f} env-steps/s; mean reward "
         f"{float(res.reward.mean()):.3f}, mean base z "
-        f"{float(st.phys.qpos[:, 2].mean()):.4f}; card: {rec['card']}")
+        f"{float(st.phys.qpos[:, 2].mean()):.4f}; B2 against the lane "
+        f"engine on {LANE_B2_B} of the env's states, one substep float64: "
+        "max_abs_err " + " ".join(f"{f} {e:.3e}" for f, e in errs.items())
+        + f" (rtol=atol={LANE_B2_F64_TOL:g}); the env's control step "
+        f"float32, qpos gap {gap32:.3e} (not gated); card: {rec['card']}")
 
     # (c) one lane substep on full at this width, traced
     ls = lane_engine.from_batched(*st.phys)

@@ -25,6 +25,26 @@ template <typename T> QG_DEV T quad_sum(T v) {
 }
 #endif
 
+// Whether (ov, oi) beats (v, i): the smaller value (``lower``) or the
+// larger, the smaller index on a tie. A total order on the pairs, so the
+// best of several is the same whichever way they are paired.
+template <typename T> QG_DEV bool beats(T ov, int oi, T v, int i, bool lower) {
+  return (lower ? ov < v : ov > v) || (ov == v && oi < i);
+}
+
+// The best (value, index) over the quad by the same two butterfly steps:
+// every lane gets the same pair. A host build supplies its own.
+#ifndef QG_HOST
+template <typename T> QG_DEV void quad_best(T& v, int& i, bool lower) {
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    const T ov = __shfl_xor_sync(0xffffffffu, v, m);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, m);
+    if (beats(ov, oi, v, i, lower)) { v = ov; i = oi; }
+  }
+}
+#endif
+
 // Sum of term(j) over the four legs of a robot, for a thread that owns NL
 // of them: all four (one thread per robot: the host build) or one (a quad
 // per robot: the card). Both forms add in the order (0 + 1) + (2 + 3).
@@ -34,6 +54,19 @@ template <int NL, typename T, typename F> QG_DEV T leg_sum(F&& term) {
     return (term(0) + term(1)) + (term(2) + term(3));
   } else {
     return quad_sum<T>(term(0));
+  }
+}
+
+// The best (value, index) pair over the four legs' pairs (see beats), for
+// a thread that owns NL of them; every owned leg gets it.
+template <int NL, typename T> QG_DEV void leg_best(T v[NL], int i[NL], bool lower) {
+  static_assert(NL == 4 || NL == 1, "a thread owns four legs or one");
+  if constexpr (NL == 4) {
+    for (int l = 1; l < 4; ++l)
+      if (beats(v[l], i[l], v[0], i[0], lower)) { v[0] = v[l]; i[0] = i[l]; }
+    for (int l = 1; l < 4; ++l) { v[l] = v[0]; i[l] = i[0]; }
+  } else {
+    quad_best<T>(v[0], i[0], lower);
   }
 }
 

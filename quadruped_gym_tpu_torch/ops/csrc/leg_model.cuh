@@ -9,9 +9,16 @@ namespace qg {
 
 constexpr int NLEG = 4;
 constexpr int NLEV = 3;
-constexpr int MAX_GROUPS = 4;
-constexpr int MAX_VERTS = 1024;
+// the collision groups of ``full`` (every mesh of the MJCF with its
+// hull): 5 of the legs, the hip servos and the frame, 1,702 vertices
+constexpr int MAX_GROUPS = 7;
+constexpr int MAX_VERTS = 2048;
 constexpr int MAX_SLOTS = 3 * MAX_GROUPS;  // contact slots per leg
+// grp_level of a group on the base (ops/leg_engine.py BASE, BASE_ONE):
+// one geom a leg, each with its own frame; or one geom that no leg
+// carries, whose slots live in leg 0's rows
+constexpr int LEVEL_BASE = -1;
+constexpr int LEVEL_BASE_ONE = -2;
 constexpr int MAX_SENSORS = 24;
 
 // sensor kinds of the table below (MuJoCo's mjtSensor values)
@@ -68,8 +75,8 @@ struct LegModel {
   T site_pos[3];
   T site_mat[9];
   T joint_centers[12];
-  T grp_pos[MAX_GROUPS][3];
-  T grp_mat[MAX_GROUPS][9];
+  T grp_pos[MAX_GROUPS][NLEG][3];  // geom frame in its body, per leg
+  T grp_mat[MAX_GROUPS][NLEG][9];
   T grp_margin[MAX_GROUPS];
   T grp_margin2[MAX_GROUPS];  // 2 * margin: slot candidates
   T grp_theta2[MAX_GROUPS];
@@ -83,7 +90,7 @@ struct LegModel {
   T vert[MAX_VERTS][3];
   T vert_n2[MAX_VERTS];
   int ngroup;
-  int grp_level[MAX_GROUPS];
+  int grp_level[MAX_GROUPS];  // 0-2 a leg level, else LEVEL_BASE(_ONE)
   int grp_nslot[MAX_GROUPS];
   int grp_vstart[MAX_GROUPS];
   int grp_nvert[MAX_GROUPS];

@@ -324,10 +324,15 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
         R.lim_D[k][l] = active ? T(1) / Rv : T(0);
         R.lim_sign[k][l] = sign;
       }
-    // plane-convex contacts, group by group
+    // plane-convex contacts, group by group. A group on the base takes
+    // the base's frame; the base's single geom (LEVEL_BASE_ONE) is the
+    // same geom in every thread of the quad, whose threads scan a quarter
+    // of its hull each and share the winners (leg_best), and leg 0 keeps
+    // its slots: the other legs' copies of them are never active.
     int ns = 0;
     for (int g = 0; g < M.ngroup; ++g) {
       const int level = M.grp_level[g];
+      const bool one = level == LEVEL_BASE_ONE;
       const int nslot = M.grp_nslot[g];
       const int v0i = M.grp_vstart[g], V = M.grp_nvert[g];
       const T margin = M.grp_margin[g], margin2 = M.grp_margin2[g];
@@ -338,6 +343,8 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
       T bpos[NL][3], bmt[NL][9];
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
+        for (int i = 0; i < 3; ++i) bpos[l][i] = org[i];
+        for (int i = 0; i < 9; ++i) bmt[l][i] = bmat[i];
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           if (k == level) {
@@ -345,12 +352,20 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
             for (int i = 0; i < 9; ++i) bmt[l][i] = lmat[k][l][i];
           }
       }
+      // the vertices this thread scans for each owned leg: all of the
+      // leg's hull, or a quarter of the base's single geom
+      int lo[NL], hi_[NL];
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        lo[l] = one ? ((leg0 + l) * V) >> 2 : 0;
+        hi_[l] = one ? ((leg0 + l + 1) * V) >> 2 : V;
+      }
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
         T tmp[3];
-        mat_vec(bmt[l], M.grp_pos[g], tmp);
+        mat_vec(bmt[l], M.grp_pos[g][leg0 + l], tmp);
         for (int i = 0; i < 3; ++i) gpos[l][i] = bpos[l][i] + tmp[i];
-        mat_mul(bmt[l], M.grp_mat[g], gmat[l]);
+        mat_mul(bmt[l], M.grp_mat[g][leg0 + l], gmat[l]);
         T off;
         if (dp.has_terrain) {
           terrain_plane(M, dp, gpos[l][0], gpos[l][1], fr[l], off);
@@ -370,16 +385,17 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
       T h0[NL], h1[NL], h2[NL], d1[NL], c2[NL];
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
-        i0[l] = 0; h0[l] = height(0, l);
+        i0[l] = lo[l]; h0[l] = height(lo[l], l);
         i1[l] = -1; h1[l] = T(0); d1[l] = T(-1);
         i2[l] = -1; h2[l] = T(0); c2[l] = T(-1);
       }
-      for (int i = 1; i < V; ++i)
 #pragma unroll
-        for (int l = 0; l < NL; ++l) {
+      for (int l = 0; l < NL; ++l)
+        for (int i = lo[l] + 1; i < hi_[l]; ++i) {
           const T hi = height(i, l);
           if (hi < h0[l]) { h0[l] = hi; i0[l] = i; }
         }
+      if (one) leg_best<NL>(h0, i0, true);
       // slot 1: farthest in-plane candidate from v0
       T v0[NL][3];  // the deepest vertex, read once (its index differs by thread)
 #pragma unroll
@@ -389,10 +405,10 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
         T v0n2[NL];
 #pragma unroll
         for (int l = 0; l < NL; ++l) v0n2[l] = dot3(v0[l], v0[l]);
-        for (int i = 0; i < V; ++i) {
-          const T* vi = M.vert[v0i + i];
 #pragma unroll
-          for (int l = 0; l < NL; ++l) {
+        for (int l = 0; l < NL; ++l)
+          for (int i = lo[l]; i < hi_[l]; ++i) {
+            const T* vi = M.vert[v0i + i];
             const T hi = height(i, l);
             const T vdot0 = (vi[0] * v0[l][0] + vi[1] * v0[l][1]) + vi[2] * v0[l][2];
             const T dv2 = (M.vert_n2[v0i + i] - T(2) * vdot0) + v0n2[l];
@@ -401,6 +417,10 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
             const T s = hi < margin2 ? dplan : T(-1);
             if (s > d1[l]) { d1[l] = s; i1[l] = i; h1[l] = hi; }
           }
+        if (one) {
+          leg_best<NL>(d1, i1, false);
+#pragma unroll
+          for (int l = 0; l < NL; ++l) h1[l] = i1[l] >= 0 ? height(i1[l], l) : T(0);
         }
       }
       // slot 2: largest spread across the v0-v1 line
@@ -419,15 +439,19 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
           mat_tvec(gmat[l], perp, gq[l]);
           v0gq[l] = dot3(v0[l], gq[l]);
         }
-        for (int i = 0; i < V; ++i) {
-          const T* vi = M.vert[v0i + i];
 #pragma unroll
-          for (int l = 0; l < NL; ++l) {
+        for (int l = 0; l < NL; ++l)
+          for (int i = lo[l]; i < hi_[l]; ++i) {
+            const T* vi = M.vert[v0i + i];
             const T hi = height(i, l);
             const T cdot = (vi[0] * gq[l][0] + vi[1] * gq[l][1]) + vi[2] * gq[l][2];
             const T s = hi < margin2 ? fabs(cdot - v0gq[l]) : T(-1);
             if (s > c2[l]) { c2[l] = s; i2[l] = i; h2[l] = hi; }
           }
+        if (one) {
+          leg_best<NL>(c2, i2, false);
+#pragma unroll
+          for (int l = 0; l < NL; ++l) h2[l] = i2[l] >= 0 ? height(i2[l], l) : T(0);
         }
       }
       // emit the group's slots as constraint rows
@@ -444,7 +468,7 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
             vi = i2[l]; dist = h2[l];
             act_ = act_ && d1[l] >= M.grp_theta2[g] && c2[l] >= M.grp_theta3[g];
           }
-          act_ = act_ && dist < M.grp_inc[g];
+          act_ = act_ && dist < M.grp_inc[g] && !(one && leg0 + l != 0);
           T vert[3] = {T(0), T(0), T(0)};
           if (vi >= 0) for (int c = 0; c < 3; ++c) vert[c] = M.vert[v0i + vi][c];
           T p[3], rel[3];

@@ -29,6 +29,7 @@ functions take them as arguments.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -54,8 +55,8 @@ from .lane_engine import LaneState, _kb_from_solref, _np_quat_mat, _static
 
 KERNEL_SOURCE = "rollout_kernel.cu"
 SUBSTEP_SOURCE = "substep_kernel.cu"
-MAX_GROUPS = 4
-MAX_VERTS = 1024
+MAX_GROUPS = 7
+MAX_VERTS = 2048
 MAX_SENSORS = 24
 # sensor kinds the kernels' sensor table takes, by their size
 _SENSOR_DIMS = {SENSOR_JOINTPOS: 1, SENSOR_ACCELEROMETER: 3, SENSOR_GYRO: 3,
@@ -82,6 +83,16 @@ WARP = 32
 # launches of each kernel wrapper; a run sets them to 0 and reads them
 launch_counts = {"fused_rollout_cost": 0, "substep": 0}
 
+# what the last launch of each kernel by its wrapper got (an eager call or
+# a CUDA graph's capture; a replay runs no wrapper): by kernel, the
+# model's contact slots a thread keeps rows for (``slots``: those of the
+# leg levels, ``leg_slots``, and those of the base's groups,
+# ``base_slots``), its packed hull vertices (``verts``), the launch's
+# ``grid``, ``threads`` and ``smem_bytes`` a block, and what the runtime
+# says of the built kernel at that size (``registers`` a thread,
+# ``local_bytes`` a thread, ``blocks_per_sm``)
+geometry: dict = {}
+
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
@@ -107,8 +118,8 @@ _LAYOUT = [
     ("lev_bv", 3), ("lev_dvel", 3), ("lev_forcerange", 6),
     ("lev_ctrlrange", 6), ("plane_frame", 9), ("plane_off", 1),
     ("plane_pos", 3), ("site_pos", 3), ("site_mat", 9),
-    ("joint_centers", 12), ("grp_pos", 3 * MAX_GROUPS),
-    ("grp_mat", 9 * MAX_GROUPS), ("grp_margin", MAX_GROUPS),
+    ("joint_centers", 12), ("grp_pos", 4 * 3 * MAX_GROUPS),
+    ("grp_mat", 4 * 9 * MAX_GROUPS), ("grp_margin", MAX_GROUPS),
     ("grp_margin2", MAX_GROUPS), ("grp_theta2", MAX_GROUPS),
     ("grp_theta3", MAX_GROUPS), ("grp_inc", MAX_GROUPS),
     ("grp_friction", MAX_GROUPS), ("grp_imp", 7 * MAX_GROUPS),
@@ -199,7 +210,8 @@ def _pack_sensors(m: PhysicsModel, P) -> None:
 
 
 def slot_budgets(m: PhysicsModel) -> list:
-    """Contact slots per leg of each collision group, in group order."""
+    """Contact slots per leg of each collision group, in group order (a
+    group on the base included: its slots take rows in every thread)."""
     return [LE._slot_budget(np.asarray(m.col_hull_verts[group[0]], np.float64),
                             float(m.col_theta2[group[0]]),
                             float(m.col_theta3[group[0]]))
@@ -288,14 +300,21 @@ def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
         if vstart + V > MAX_VERTS:
             raise LE.IncompatibleModelError(
                 f"more than {MAX_VERTS} hull vertices in all")
+        if level == LE.BASE_ONE and V < 4:  # a quarter a thread
+            raise LE.IncompatibleModelError(
+                "a geom on the base needs a hull of 4 vertices or more")
         P.grp_level[g] = level
         P.grp_nslot[g] = budgets[g]
         P.grp_vstart[g] = vstart
         P.grp_nvert[g] = V
-        for c in range(3):
-            P.grp_pos[3 * g + c] = float(m.col_geom_pos[g0][c])
-        for c, v in enumerate(_np_quat_mat(m.col_geom_quat[g0]).reshape(-1)):
-            P.grp_mat[9 * g + c] = float(v)
+        # each leg's member of the group, its frame in its body
+        members = group if level == LE.BASE else (g0,) * 4
+        for leg, geom in enumerate(members):
+            for c in range(3):
+                P.grp_pos[12 * g + 3 * leg + c] = float(m.col_geom_pos[geom][c])
+            for c, v in enumerate(
+                    _np_quat_mat(m.col_geom_quat[geom]).reshape(-1)):
+                P.grp_mat[36 * g + 9 * leg + c] = float(v)
         margin = float(m.col_margin[g0])
         P.grp_margin[g] = margin
         P.grp_margin2[g] = 2.0 * margin
@@ -308,8 +327,8 @@ def pack_model(m: PhysicsModel, dtype: torch.dtype) -> ctypes.Structure:
         K, B = _kb_from_solref(m.col_solref[g0], m.col_solimp[g0])
         P.grp_K[g] = K
         P.grp_B[g] = B
-        P.grp_2invweight[g] = 2.0 * float(
-            m.body_invweight0[ls.leg_bodies[level][0]][0])
+        body = ls.base if level < 0 else ls.leg_bodies[level][0]
+        P.grp_2invweight[g] = 2.0 * float(m.body_invweight0[body][0])
         for i in range(V):
             for c in range(3):
                 P.vert[3 * (vstart + i) + c] = float(verts[i, c])
@@ -323,10 +342,42 @@ def _model_buffer(m: PhysicsModel, dtype, device) -> torch.Tensor:
     cache = m.__dict__.setdefault("_cuda_model_cache", {})
     key = (dtype, str(device))
     if key not in cache:
-        raw = bytes(pack_model(m, dtype))
-        cache[key] = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(
-            device)
+        with profiling.span("cuda_engine.pack_model"):
+            raw = bytes(pack_model(m, dtype))
+            cache[key] = torch.frombuffer(bytearray(raw),
+                                          dtype=torch.uint8).to(device)
     return cache[key]
+
+
+def _model_sizes(m: PhysicsModel) -> dict:
+    """The model's slots a thread keeps rows for, those of the leg levels
+    and of the base's groups, and its packed hull vertices."""
+    if "_cuda_model_sizes" not in m.__dict__:
+        groups = LE._leg_static(m).col_groups
+        base = sum(n for (level, _), n in zip(groups, slot_budgets(m))
+                   if level < 0)
+        m.__dict__["_cuda_model_sizes"] = {
+            "slots": model_slots(m), "leg_slots": model_slots(m) - base,
+            "base_slots": base,
+            "verts": sum(len(m.col_hull_verts[grp[0]]) for _, grp in groups)}
+    return m.__dict__["_cuda_model_sizes"]
+
+
+@functools.lru_cache(maxsize=None)
+def _runtime_info(source: str, dtype, threads: int, smem_bytes: int) -> dict:
+    return kernel_info(source, dtype, threads, smem_bytes)
+
+
+def _record_geometry(kernel: str, source: str, m: PhysicsModel, dtype,
+                     geo: "LaunchGeometry") -> None:
+    """Set ``geometry[kernel]`` for a launch of ``source`` at ``geo``; the
+    runtime is asked once per (source, type, block, shared bytes)."""
+    info = _runtime_info(source, dtype, geo.threads, geo.smem_bytes)
+    geometry[kernel] = {
+        **_model_sizes(m), "grid": geo.grid, "threads": geo.threads,
+        "smem_bytes": geo.smem_bytes, "registers": info["registers"],
+        "local_bytes": info["local_bytes"],
+        "blocks_per_sm": info["blocks_per_sm"]}
 
 
 # --------------------------------------------------------------------------
@@ -566,6 +617,7 @@ def fused_rollout_cost(
             err = lib.qg_fused_rollout(*args)
         _check_launch(err, "fused_rollout_cost", geo)
         launch_counts["fused_rollout_cost"] += 1
+        _record_geometry("fused_rollout_cost", KERNEL_SOURCE, m, dt, geo)
         return out
 
 
@@ -641,6 +693,7 @@ def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
         err = lib.qg_substeps(*args)
     _check_launch(err, "substep kernel", geo)
     launch_counts["substep"] += 1
+    _record_geometry("substep", SUBSTEP_SOURCE, m, dt, geo)
     time = ls.time
     for _ in range(nsub):  # as the plain version adds it, substep by substep
         time = time + m.timestep

@@ -5,8 +5,10 @@ Counterpart of ``quadruped_gym_tpu/ops/lane_engine.py``: the same math as
 position-servo actuation, plane-convex contacts, primal Newton constraint
 solve, implicitfast integration) with the state laid out batch minor
 (``LaneState``: a per-robot scalar is a (B,) lane vector). It serves every
-model, also those that fail ``leg_engine.is_compatible`` (the ``full``
-collision model, whose base and hips collide too).
+model, also those that fail ``leg_engine.is_compatible`` (legs that
+differ, a branch in a leg chain, a geom on a body that is neither the
+base nor a leg), and holds the leg-batched engine and the kernels to a
+formulation of another structure on the models they take.
 
 The JAX package unrolls every body, dof and contact slot at trace time
 into per-lane scalar ops that XLA fuses into a few loops. Eager PyTorch

@@ -12,7 +12,13 @@ one (4, B) lane tensor:
     within-leg (4, B) blocks with no leg-leg coupling; the tree-sparse
     LDLᵀ factors the four chains in parallel;
   * the contact Hessian M + JᵀWJ has the same block structure;
-  * one hull per collision group serves all four legs.
+  * one hull per collision group serves all four legs. A group is a
+    level of the leg chains (one geom a leg, the leg's body frame), or
+    lies on the base: one geom a leg with a frame of its own each (the
+    hip servos of ``full``, ``BASE``), or the base's own single geom
+    (``full``'s frame, ``BASE_ONE``), carried in leg 0's lanes, the other
+    legs' lanes of its slots never active. A base group's contact rows
+    touch only the six free dofs.
 
 Everything spatial is measured relative to ``kin.origin`` (the base
 position): world-origin formulations cancel catastrophically in float32
@@ -59,6 +65,10 @@ from .lane_engine import (
 
 NLEG = 4
 NLEV = 3  # hip, knee, ankle
+# the level of a collision group on the base: one geom a leg, each with
+# its own frame (BASE), or one geom that no leg carries (BASE_ONE)
+BASE = -1
+BASE_ONE = -2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +77,8 @@ class _LegStatic:
     leg_bodies: Tuple[Tuple[int, ...], ...]  # [level][leg] body ids
     leg_joints: Tuple[Tuple[int, ...], ...]  # [level][leg] joint ids
     # collision geoms, grouped into per-leg identical quadruples:
-    # [(chain level, (geom id per leg))]
+    # [(chain level, (geom id per leg))], the leg levels first; then the
+    # base's: [(BASE, (geom id per leg))] and [(BASE_ONE, (geom id,))]
     col_groups: Tuple[Tuple[int, Tuple[int, ...]], ...]
 
 
@@ -164,12 +175,18 @@ def _leg_static(m: PhysicsModel) -> _LegStatic:
             group = tuple(per_leg[l][j] for l in range(NLEG))
             col_groups.append((k, group))
             grouped += NLEG
+    base_geoms = sorted(geoms_by_body.get(base, []))
+    col_groups += _base_groups(m, base_geoms, leg_bodies[0])
+    grouped += len(base_geoms)
     _require(grouped == len(m.col_geom_bodyid),
-             "collision geoms outside the leg chains are not supported")
-    for _, group in col_groups:
-        for field in ("col_geom_pos", "col_geom_quat", "col_friction",
-                      "col_solref", "col_solimp", "col_margin", "col_gap",
-                      "col_theta2", "col_theta3"):
+             "collision geoms outside the base and the leg chains are not "
+             "supported")
+    for level, group in col_groups:
+        fields = ("col_friction", "col_solref", "col_solimp", "col_margin",
+                  "col_gap", "col_theta2", "col_theta3")
+        if level >= 0:  # a base group's members have frames of their own
+            fields = ("col_geom_pos", "col_geom_quat") + fields
+        for field in fields:
             vals = np.asarray(getattr(m, field))[list(group)]
             _require(np.allclose(vals, vals[0]), f"{field} differs across legs")
         for g in group[1:]:
@@ -180,6 +197,37 @@ def _leg_static(m: PhysicsModel) -> _LegStatic:
                    col_groups=tuple(col_groups))
     object.__setattr__(m, "_leg_static_cache", s)
     return s
+
+
+def _base_groups(m: PhysicsModel, geoms, hips) -> list:
+    """The base's collision geoms as groups: four geoms with one hull and
+    the same contact parameters, one nearest each leg's hip mount, make a
+    ``BASE`` group (member l the one at leg l); every other geom is a
+    ``BASE_ONE`` group of its own. ``BASE`` groups first, in geom order."""
+    def key(g):
+        params = [np.asarray(getattr(m, f))[g] for f in (
+            "col_friction", "col_solref", "col_solimp", "col_margin",
+            "col_gap", "col_theta2", "col_theta3")]
+        return (np.asarray(m.col_hull_verts[g], np.float64).tobytes(),
+                np.concatenate([np.ravel(p) for p in params]).tobytes())
+
+    buckets: dict = {}
+    for g in geoms:
+        buckets.setdefault(key(g), []).append(g)
+    mounts = np.asarray(m.body_pos)[list(hips)]
+    per_leg, single = [], []
+    for members in buckets.values():
+        if len(members) == NLEG:
+            pos = np.asarray(m.col_geom_pos)[members]
+            near = [int(np.argmin(np.sum((mounts - p) ** 2, axis=1)))
+                    for p in pos]
+            if sorted(near) == list(range(NLEG)):
+                per_leg.append((BASE, tuple(members[near.index(l)]
+                                            for l in range(NLEG))))
+                continue
+        single += [(BASE_ONE, (g,)) for g in members]
+    return (sorted(per_leg, key=lambda x: min(x[1]))
+            + sorted(single, key=lambda x: x[1]))
 
 
 def is_compatible(m: PhysicsModel) -> bool:
@@ -543,12 +591,36 @@ def _slot_budget(verts: np.ndarray, theta2: float, theta3: float) -> int:
     return 2 if diam < theta3 else 3
 
 
-def _geom_frame(m, kin, level, g0):
-    body_mat = kin.leg_mat[level]
-    gpos = L.v3_add(kin.leg_pos[level],
-                    L.mat_vec(body_mat, _v3c(m.col_geom_pos[g0])))
-    gmat = L.mat_mul(body_mat, _const_mat(m.col_geom_quat[g0]))
+def _geom_frame(m, kin, level, group):
+    """World position and rotation of a group's geom: (4, B) lanes on a
+    leg or ``BASE`` group (a ``BASE`` member's own frame as (4, 1)
+    columns), (B,) lanes on a ``BASE_ONE`` group."""
+    g0 = group[0]
+    if level < 0:
+        body_pos, body_mat = kin.base_pos, kin.base_mat
+    else:
+        body_pos, body_mat = kin.leg_pos[level], kin.leg_mat[level]
+    if level == BASE:
+        like = kin.base_pos[0]
+        pos = _leg_const_vec(np.asarray(m.col_geom_pos)[list(group)], like)
+        mats = np.stack([_np_quat_mat(m.col_geom_quat[g]) for g in group])
+        rot = tuple(tuple(_leg_const_col(mats[:, r, c], like)
+                          for c in range(3)) for r in range(3))
+    else:
+        pos, rot = _v3c(m.col_geom_pos[g0]), _const_mat(m.col_geom_quat[g0])
+    gpos = L.v3_add(body_pos, L.mat_vec(body_mat, pos))
+    gmat = L.mat_mul(body_mat, rot)
     return gpos, gmat
+
+
+def _leg0_only(pos, dist, active):
+    """A ``BASE_ONE`` slot's (B,) values as (4, B) lanes: leg 0 carries
+    the slot, the other legs' copies are never active."""
+    four = lambda x: x.expand((NLEG,) + x.shape)  # noqa: E731
+    off = torch.zeros((NLEG - 1,) + active.shape, dtype=torch.bool,
+                      device=active.device)
+    return (tuple(four(x) for x in pos), four(dist),
+            torch.cat([active[None], off]))
 
 
 def _plane(m: PhysicsModel, dp):
@@ -636,7 +708,7 @@ def _collide_loop(m: PhysicsModel, kin: _Kin, plane_frame=None,
     slots = []
     for level, group in ls.col_groups:
         g0 = group[0]
-        gpos, gmat = _geom_frame(m, kin, level, g0)
+        gpos, gmat = _geom_frame(m, kin, level, group)
         verts = np.asarray(m.col_hull_verts[g0])
         V = verts.shape[0]
 
@@ -733,14 +805,18 @@ def _collide_loop(m: PhysicsModel, kin: _Kin, plane_frame=None,
 
         for (pi, hi, ai) in emitted:
             pos = tuple(L.sub(pi[i], L.mul(0.5 * n[i], hi)) for i in range(3))
-            slots.append((pos, hi, ai & (hi < inc), level, g0, frame))
+            active = ai & (hi < inc)
+            if level == BASE_ONE:
+                pos, hi, active = _leg0_only(pos, hi, active)
+            slots.append((pos, hi, active, level, g0, frame))
     return slots
 
 
 class _Rows(NamedTuple):
     lim_sign: tuple  # [level] (4, B)
     slot_J: tuple  # per slot: (Jn_free [6], Jn_leg [3], Jt1_..., Jt2_...);
-    #                levels above the contact body's level are static 0.0
+    #                levels above the contact body's level (all three for
+    #                a base group) are static 0.0
     slot_mu: tuple  # friction coefficient per contact slot
     aref: torch.Tensor  # (ngroups, 4, B): 3 limit groups + 4*nslot facets
     D: torch.Tensor
@@ -781,7 +857,8 @@ def _make_rows(m: PhysicsModel, kin: _Kin, S_free, S_leg, q_leg, qv_free,
     # ---- contact slots ----
     slot_J, slot_mu = [], []
     for (pos, dist, active, level, g0, frame) in slots:
-        body0 = ls.leg_bodies[level][0]
+        body0 = ls.base if level < 0 else ls.leg_bodies[level][0]
+        nlev = max(level + 1, 0)  # the leg levels that move the contact
         n_s, t1_s, t2_s = frame if frame is not None else (n, t1, t2)
         # DomainParams.friction replaces the tangential coefficient of
         # every ground contact; the impedance weights keep the nominal
@@ -800,9 +877,10 @@ def _make_rows(m: PhysicsModel, kin: _Kin, S_free, S_leg, q_leg, qv_free,
             return Jn, Jt1, Jt2
 
         Jn_f, Jt1_f, Jt2_f = proj_rows(S_free)
-        # joints below the contact body on the chain do not move it
-        Jn_l, Jt1_l, Jt2_l = proj_rows(S_leg[: level + 1])
-        pad = [0.0] * (NLEV - 1 - level)
+        # joints below the contact body on the chain do not move it, and
+        # none moves a geom on the base
+        Jn_l, Jt1_l, Jt2_l = proj_rows(S_leg[:nlev])
+        pad = [0.0] * (NLEV - nlev)
         J = (tuple(Jn_f), tuple(Jn_l + pad), tuple(Jt1_f),
              tuple(Jt1_l + pad), tuple(Jt2_f), tuple(Jt2_l + pad))
         slot_J.append(J)

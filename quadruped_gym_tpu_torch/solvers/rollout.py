@@ -158,9 +158,10 @@ def lane_batched_rollout_cost(
     control step, then ``cost_fn`` on the sensors it wrote, so any stage
     cost works. ``"leg"`` loops the eager leg engine with ``cost_fn``.
     ``"lane"`` loops the eager lane engine, which serves every model: the
-    other three need the feet-only collision model
-    (``leg_engine.is_compatible``) and fall back to it, with a warning,
-    on any other. ``dp`` needs one of those three."""
+    other three need a leg-compatible model (``leg_engine.is_compatible``:
+    identical legs on a free base, collision geoms on the legs and the
+    base, the robot's ``full`` model included) and fall back to it, with
+    a warning, on any other. ``dp`` needs one of those three."""
     with profiling.span("rollout.lane_batched_rollout_cost"):
         from ..ops import cuda_engine, lane_engine, leg_engine
 
@@ -171,8 +172,8 @@ def lane_batched_rollout_cost(
             )
         if engine_impl != "lane" and not leg_engine.is_compatible(m):
             warnings.warn(
-                f"engine_impl={engine_impl!r} needs the feet-only "
-                "collision model (leg_engine.is_compatible); falling "
+                f"engine_impl={engine_impl!r} needs a leg-compatible "
+                "model (leg_engine.is_compatible); falling "
                 "back to the slower lane engine",
                 stacklevel=2,
             )
@@ -180,7 +181,7 @@ def lane_batched_rollout_cost(
         if dp is not None and engine_impl == "lane":
             raise ValueError(
                 "DomainParams require the leg/pallas/fused engines "
-                "(feet-only collision model)"
+                "(a leg-compatible model)"
             )
         if engine_impl == "fused":
             if not getattr(cost_fn, "_is_walking_stage_cost", False):

@@ -287,8 +287,10 @@ def batched_step(
     (``ops.cuda_engine.control_step``, one launch per call);
     ``"leg"``, and ``"auto"`` for a leg-compatible model, is the eager leg
     engine; ``"lane"``, and ``"auto"`` for any other model, the eager lane
-    engine. ``"pallas"`` on a model that is not leg-compatible warns and
-    falls back to the lane engine. The Newton budget is a fixed iteration
+    engine. ``"pallas"`` on a model that is not leg-compatible (legs that
+    differ, a branch in a leg chain, a geom off the base and the legs;
+    the robot's ``full`` model is compatible) warns and falls back to the
+    lane engine. The Newton budget is a fixed iteration
     count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
     (or 4 when that is None)."""
     from ..ops import cuda_engine, lane_engine
@@ -298,7 +300,7 @@ def batched_step(
     eng = batched_engine(m, engine_impl)
     if engine_impl == "pallas" and eng is not cuda_engine:
         warnings.warn(
-            "engine_impl='pallas' needs the feet-only collision model "
+            "engine_impl='pallas' needs a leg-compatible model "
             "(leg_engine.is_compatible); falling back to the slower "
             "lane engine",
             stacklevel=2,

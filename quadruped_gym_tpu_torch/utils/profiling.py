@@ -34,7 +34,16 @@ Counterpart of ``quadruped_gym_tpu/utils/profiling.py``:
     ``walking.physics`` (the layout conversions and the engine's control
     step), ``cuda_engine.control_step`` (B2's wrapper, with its
     ``cuda_engine.launch``), ``vector_env.autoreset`` (the fresh draw and
-    the select).
+    the select);
+  * either kernel's first call on a model: ``cuda_engine.pack_model``
+    (the model's constants packed and uploaded, once per model, type and
+    device).
+
+  Beside the spans, ``ops.cuda_engine.geometry`` holds, by kernel, what
+  the wrapper's last launch (an eager call or a CUDA graph's capture)
+  got: the model's slots and packed vertices, the block, grid and shared
+  bytes, and the registers, local bytes and resident blocks the CUDA
+  runtime reports for the built kernel at that size.
 - ``cost_summary(fn, *args)``: the operations and bytes of ``fn(*args)``
   run eagerly under a dispatch mode (``ops.cuda_engine.count_cost``),
   with the roofline bound for the card.

@@ -304,7 +304,9 @@ def test_delayed_loop_predictors():
 
 
 def test_loops_refuse_unknown_engines():
-    full = tspec.get_full_model()
+    from torch_models import incompatible_full
+
+    full = incompatible_full()  # not leg-compatible: uneven legs
     cfg = _mpc(False)
     carry = trt.init_carry(TM, cfg, LOOP_H, seed=0, dtype=F64, device="cpu")
     args = (TM, cfg, trollout.make_cost_fn(TM), carry, _tstart(), TCMD, 1)

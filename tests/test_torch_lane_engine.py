@@ -109,13 +109,33 @@ def test_matches_jax_snapshot(name):
     _assert_jax_close(_run_port(name), want)
 
 
-def test_matches_live_jax():
-    """The snapshot still is what the JAX package computes (one case)."""
+@functools.lru_cache(maxsize=None)
+def _live_jax():
+    """The live case through the JAX lane engine, once a process."""
     from torch_jax_cache import no_cache_writes
 
     with no_cache_writes():
-        want = _script().jax_case(_script().LIVE)
-    _assert_jax_close(_run_port(_script().LIVE), want)
+        return _script().jax_case(_script().LIVE)
+
+
+def test_matches_live_jax():
+    """The snapshot still is what the JAX package computes (one case)."""
+    _assert_jax_close(_run_port(_script().LIVE), _live_jax())
+
+
+def test_leg_route_on_full_matches_live_jax():
+    """The port's leg-batched engine on ``full`` (its base's groups
+    included; the JAX package's leg engine refuses the model) against the
+    live JAX lane engine on the same case: ``full`` pressed to 3 cm, the
+    hip servos in contact, one step at 4/8."""
+    case = _script()
+    assert case.LIVE == "full_contact"
+    model, _, _, _, call, kw = case.CASES[case.LIVE]
+    assert (model, call, kw) == ("full", "step", {})
+    batched, ctrl = case.case_inputs(case.LIVE)
+    got = leg_engine.step(tspec.get_snapshot(model), _state(batched),
+                          torch.as_tensor(ctrl), *case.ITERATIONS)
+    _assert_jax_close(got, _live_jax())
 
 
 @pytest.mark.slow
@@ -133,8 +153,8 @@ def test_snapshot_matches_live_jax():
 
 def test_contact_cases_touch_the_ground():
     """The contact cases really exercise the contact solve, and on
-    ``full`` the base and hips (the geoms the leg engine cannot take)
-    are among the active slots."""
+    ``full`` the base and hips (the geoms on the base, which the leg
+    engine takes as groups of their own) are among the active slots."""
     case = _script()
     for name in ("mpc_plant_contact", "full_contact"):
         m = tspec.get_snapshot(case.CASES[name][0])
@@ -150,7 +170,10 @@ def test_contact_cases_touch_the_ground():
     base = lane_engine._static(m).root
     hips = set(lane_engine._static(m).children[base])
     assert base in bodies and hips <= bodies
-    assert not leg_engine.is_compatible(m)
+    assert leg_engine.is_compatible(m)
+    from torch_models import incompatible_full
+
+    assert not leg_engine.is_compatible(incompatible_full())
 
 
 def test_tile_equals_flat():

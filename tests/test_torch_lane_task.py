@@ -1,6 +1,7 @@
 """The walking task and the vector env through the port's lane engine on
-the ``full`` collision model (25 geoms, base and hips included: not
-leg-compatible), float64 on the CPU.
+a model that is not leg-compatible (``torch_models.incompatible_full``:
+the ``full`` collision model, 25 geoms, base and hips included, with one
+shin heavier than the others), float64 on the CPU.
 
 ``walking.batched_step`` keeps the task layer and routes the physics
 substeps through the lane engine; from airborne, moving start states it
@@ -18,11 +19,11 @@ import pytest
 import torch
 
 from quadruped_gym_tpu_torch.envs import vector_env
-from quadruped_gym_tpu_torch.models import spec
 from quadruped_gym_tpu_torch.tasks import walking
+from torch_models import incompatible_full
 
 N = 4
-M = spec.get_full_model()
+M = incompatible_full()
 CFG = walking.WalkingConfig(
     max_time=5.0, frame_skip=2, settling_time=0.004, random_controls=True,
     random_init=True, solver_iterations=8, dtype=torch.float64)
@@ -64,7 +65,8 @@ def test_batched_step_matches_oracle_step():
 
 def test_engine_choice_on_full():
     """``"auto"`` picks the lane engine for a model that is not
-    leg-compatible, ``"pallas"`` warns and falls back to it."""
+    leg-compatible (``full`` with uneven legs), ``"pallas"`` warns and
+    falls back to it."""
     state, _ = _reset(3)
     action = torch.as_tensor(
         0.3 * np.random.default_rng(4).standard_normal((N, M.nu)))
@@ -82,8 +84,9 @@ def test_engine_choice_on_full():
 
 
 def test_vector_env_lane_physics_on_full():
-    """``VectorWalkingEnv(full, lane_physics=True)`` resets and steps, and
-    an env that runs out of time comes back fresh."""
+    """``VectorWalkingEnv(lane_physics=True)`` on ``full`` with uneven legs
+    resets and steps on the lane engine, and an env that runs out of time
+    comes back fresh."""
     cfg = dataclasses.replace(CFG, max_time=0.01, solver_iterations=2)
     env = vector_env.VectorWalkingEnv(M, cfg, 3, lane_physics=True, seed=5,
                                       device="cpu")

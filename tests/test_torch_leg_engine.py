@@ -124,3 +124,7 @@ def test_is_compatible():
     for name in ("planning", "fast_plant"):
         jm, tm = _models(name)
         assert tleg.is_compatible(tm) == jleg.is_compatible(jm) is True
+    # every mesh with its hull: the port's leg engine takes the base's
+    # groups (the hip servos and the frame), the JAX package's does not
+    assert tleg.is_compatible(tspec.get_full_model()) is True
+    assert jleg.is_compatible(jspec.get_model()) is False

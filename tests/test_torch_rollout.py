@@ -223,9 +223,11 @@ def test_dispatch_lane_equals_leg():
 
 @pytest.mark.parametrize("impl", ["leg", "pallas", "fused"])
 def test_dispatch_falls_back_to_lane(impl):
-    """A model that is not leg-compatible (``full``: its base and hips
-    collide) warns and runs on the lane engine."""
-    m = tspec.get_full_model()
+    """A model that is not leg-compatible (``full`` with one shin heavier
+    than the others) warns and runs on the lane engine."""
+    from torch_models import incompatible_full
+
+    m = incompatible_full()
     cfg = trollout.RolloutConfig(horizon=1, frame_skip=1)
     st, seqs, cmd, prev = _dispatch_args(m)
     cost = trollout.make_cost_fn(m)

@@ -283,3 +283,17 @@ def test_a_trace_without_spans_is_left_as_exported(tmp_path):
         events = json.load(f)["traceEvents"]
     assert not [ev for ev in events if ev.get("cat") == "span"]
     assert np.any(["mul" in str(ev.get("name")) for ev in events])
+
+
+def test_packing_a_model_is_a_span():
+    """Packing and uploading a model for the kernels
+    (``cuda_engine._model_buffer``, once per model, type and device) is
+    the span ``cuda_engine.pack_model``; a cached model opens none."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    m = spec.get_planning_model(96)  # a model no other test packs
+    m.__dict__.pop("_cuda_model_cache", None)
+    with _cpu_session():
+        cuda_engine._model_buffer(m, torch.float32, "cpu")
+        cuda_engine._model_buffer(m, torch.float32, "cpu")
+    assert _tree(profiling.spans()) == [("cuda_engine.pack_model", None)]

@@ -54,24 +54,38 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def _model(name):
+    """A model by name; ``uneven_full`` is ``full`` with one shin heavier,
+    which is not leg-compatible."""
+    if name == "uneven_full":
+        from torch_models import incompatible_full
+
+        return incompatible_full()
+    return getattr(spec, f"get_{name}_model")()
+
+
 @pytest.mark.parametrize("model,impl", [("planning", "pallas"),
                                         ("planning", "leg"),
                                         ("planning", "auto"),
-                                        ("full", "pallas")])
+                                        ("full", "pallas"),
+                                        ("uneven_full", "pallas")])
 def test_routes_off_the_graph_are_eager_and_unchanged(model, impl):
     """On the CPU, and on every engine but the substep kernel, a call is
     counted eager and returns what the task step and the auto-reset
-    compute (``full`` under ``"pallas"``: the lane engine's fallback)."""
-    m = getattr(spec, f"get_{model}_model")()
+    compute (``full`` under ``"pallas"`` on the CPU: the kernel's plain
+    version; ``uneven_full``: the lane engine's fallback, with a
+    warning)."""
+    m = _model(model)
     cfg = _cfg()
     st, action = _inputs(m, cfg)
+    falls_back = model == "uneven_full"
     vector_env.reset_graph_counts()
-    with pytest.warns(UserWarning) if model == "full" else contextlib.nullcontext():
+    with pytest.warns(UserWarning) if falls_back else contextlib.nullcontext():
         got = vector_env.batched_autoreset_step(
             m, cfg, st, action, torch.Generator().manual_seed(5),
             engine_impl=impl)
     assert vector_env.graph_counts == {"captures": 0, "replays": 0, "eager": 1}
-    with pytest.warns(UserWarning) if model == "full" else contextlib.nullcontext():
+    with pytest.warns(UserWarning) if falls_back else contextlib.nullcontext():
         out = walking.batched_step(m, cfg, st, action, engine_impl=impl)
     want = vector_env._autoreset(m, cfg, out, N,
                                  torch.Generator().manual_seed(5))
@@ -201,16 +215,20 @@ def test_inputs_and_outputs_pack_into_one_buffer_per_dtype():
 @pytest.mark.parametrize("model,impl,want", [
     ("planning", "pallas", "cuda_engine"), ("planning", "auto", "leg_engine"),
     ("planning", "leg", "leg_engine"), ("planning", "lane", "lane_engine"),
-    ("full", "pallas", "lane_engine"), ("full", "auto", "lane_engine")])
+    ("full", "pallas", "cuda_engine"), ("full", "auto", "leg_engine"),
+    ("uneven_full", "pallas", "lane_engine"),
+    ("uneven_full", "auto", "lane_engine")])
 def test_batched_engine_is_the_one_choice_of_engine(model, impl, want):
     """``walking.batched_engine`` names the engine ``batched_step`` runs,
     and the graph route is taken exactly when it names the substep
-    kernel's wrapper; an unknown name raises."""
+    kernel's wrapper; an unknown name raises. ``full`` (every mesh with
+    its hull, base and hip servos included) is leg-compatible and takes
+    the kernel; ``uneven_full`` (one shin heavier) is not."""
     from quadruped_gym_tpu_torch.ops import cuda_engine
 
-    m = getattr(spec, f"get_{model}_model")()
+    m = _model(model)
     eng = walking.batched_engine(m, impl)
     assert eng.__name__.rsplit(".", 1)[-1] == want
-    assert (eng is cuda_engine) == (model == "planning" and impl == "pallas")
+    assert (eng is cuda_engine) == (model != "uneven_full" and impl == "pallas")
     with pytest.raises(ValueError, match="unknown engine_impl"):
         walking.batched_engine(m, "fused")

@@ -23,11 +23,13 @@ using std::cos; using std::exp; using std::pow;
 namespace qg {
 
 // four threads in lockstep: an exchange slot per butterfly step and a
-// sense-reversing barrier (a float is held exactly in a double slot)
+// sense-reversing barrier (a float is held exactly in a double slot; so is
+// an index)
 struct Quad {
   std::atomic<int> count{0};
   std::atomic<int> gen{0};
   double slot[2][4];
+  double pair[2][4][2];
   void wait() {
     const int g = gen.load(std::memory_order_acquire);
     if (count.fetch_add(1, std::memory_order_acq_rel) == 3) {
@@ -53,6 +55,20 @@ template <typename T> T quad_sum(T v) {
   q.wait();
   v = v + (T)q.slot[1][l ^ 2];
   return v;
+}
+
+// the card's quad_best (lane_math.cuh) through the exchange buffer
+template <typename T> void quad_best(T& v, int& i, bool lower) {
+  Quad& q = *tl_quad;
+  const int l = tl_leg;
+  for (int s = 0; s < 2; ++s) {
+    q.pair[s][l][0] = (double)v;
+    q.pair[s][l][1] = (double)i;
+    q.wait();
+    const T ov = (T)q.pair[s][l ^ (1 << s)][0];
+    const int oi = (int)q.pair[s][l ^ (1 << s)][1];
+    if ((lower ? ov < v : ov > v) || (ov == v && oi < i)) { v = ov; i = oi; }
+  }
 }
 
 }  // namespace qg
