@@ -14,8 +14,11 @@ Phases, each of which raises on failure (nothing is caught):
 3. check: each kernel against its plain PyTorch version on the card, on
    the same inputs, at the tolerances stated below: the fused rollout's
    costs, and the substep kernel's qpos, qvel, act and all 33 sensors;
-   widths the block size does not divide included. A launch the card
-   must refuse (too much shared memory) has to raise. The oracle engine
+   widths the block size does not divide included. B2 at the env's
+   width and B1 at the replan's and the closed loop's, at every split of
+   replicas (1, 2, 4), must agree in every bit; each split is timed. A
+   launch the card must refuse (too much shared memory) has to raise.
+   The oracle engine
    (plain PyTorch, no kernel): ``physics.engine.step`` on the card
    against the CPU in float64 (a state in contact and one in the air,
    1e-9) on the plant model (``mpc_plant``) and on the gym env's
@@ -238,6 +241,7 @@ FRAME_SKIP = 5
 BUDGET = {"planning": (2, 4), "fast_plant": (4, 8)}
 N_ENVS = 2048  # PPOConfig.num_envs of the JAX package
 ENV_FRAME_SKIP = 4
+REPLAN_S = 4096  # the replan cell's rollouts (benchmark/traffic/replan-4k)
 # the published H100 SXM peaks (utils/profiling.py's H100: FP32 outside
 # the tensor cores in FLOP/s, an FMA counted two as cuda_engine.count_ops
 # counts it; HBM3 bandwidth)
@@ -484,6 +488,17 @@ def phase_build(rec):
     launch_report(rec)
 
 
+def geometry_of(source, m, dtype, n):
+    """``launch_geometry`` as the wrapper of ``source``'s kernel takes it
+    for ``n`` robots of ``m``."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    kernel = SUBSTEP if source == cuda_engine.SUBSTEP_SOURCE else ROLLOUT
+    return cuda_engine.launch_geometry(
+        cuda_engine.model_slots(m), dtype, n,
+        cuda_engine.scheduler_warps(kernel, m))
+
+
 def launch_report(rec):
     """Block size, grid and dynamic shared memory of every main-path
     launch, with the registers, local bytes and resident blocks per SM
@@ -495,6 +510,7 @@ def launch_report(rec):
     rec["launch"] = {}
     for label, source, model, n in (
             ("B1 planning", cuda_engine.KERNEL_SOURCE, "planning", S_MAIN),
+            ("B1 replan", cuda_engine.KERNEL_SOURCE, "planning", REPLAN_S),
             ("B1 fast_plant", cuda_engine.KERNEL_SOURCE, "fast_plant", S_MAIN),
             ("B2 planning", cuda_engine.SUBSTEP_SOURCE, "planning", S_MAIN),
             ("B2 fast_plant", cuda_engine.SUBSTEP_SOURCE, "fast_plant",
@@ -504,12 +520,13 @@ def launch_report(rec):
             ("B2 full env", cuda_engine.SUBSTEP_SOURCE, "full", N_ENVS)):
         m = getattr(spec, f"get_{model}_model")()
         nslot = cuda_engine.model_slots(m)
-        geo = cuda_engine.launch_geometry(nslot, f32, n)
+        geo = geometry_of(source, m, f32, n)
         info = cuda_engine.kernel_info(source, f32, geo.threads,
-                                       geo.smem_bytes)
+                                       geo.smem_bytes, geo.split)
         info.update(grid=geo.grid, nslot=nslot, n=n)
         rec["launch"][label] = info
-        log(f"launch {label}: n={n}, {nslot} slots a leg, float32: grid "
+        log(f"launch {label}: n={n}, {nslot} slots a leg, float32: split "
+            f"{geo.split}, grid "
             f"{geo.grid} x {geo.threads} threads, {geo.smem_bytes} B dynamic "
             f"shared a block; {info['registers']} registers and "
             f"{info['local_bytes']} B local a thread; "
@@ -776,11 +793,104 @@ def phase_check(rec):
     check_substep(rec, "f32 full low (env width)", "full", "low", N_ENVS,
                   ENV_FRAME_SKIP, BUDGET["fast_plant"], f32, F32_TOL,
                   seed=29, lanes_off=F32_FULL_LOW_LANES_OFF)
+    check_split(rec)
     check_decimations(rec)
     check_refused_launch(rec)
     check_oracle(rec)
     check_gradient(rec)
     check_lane(rec)
+
+
+def check_split(rec, seed=30, iters=5):
+    """The kernels at every split (1, 2, 4 replicas a leg) through the
+    wrappers' geometry arguments, on the same inputs: B2 at the env's
+    width (the fast plant grounded, ``full`` with the base pressed to 3
+    cm, frame_skip 4), B1 at the replan's S=4,096 (planning) and at 2,048
+    (``full`` pressed), H=1, and B1 at the closed loop's shape (the
+    ``loop`` phase's planner: planning 4/8, S=1,024, H=20) from a state
+    settled on its feet, float32. Replicas split only the hull-vertex
+    scans and keep the serial scan's winners, so the outputs must agree
+    in every bit; ``geometry[...]["split"]`` says which split ran. Each
+    split is timed (CUDA events, median of ``iters`` launches), and the
+    split the wrapper takes is printed."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+    from quadruped_gym_tpu_torch.physics.engine import State
+
+    dev, dt = torch.device("cuda"), torch.float32
+    rec["split_checks"] = {}
+
+    def same(label, kernel, m, n, run):
+        """run: geometry -> tuple of outputs"""
+        nslot = cuda_engine.model_slots(m)
+        chosen = cuda_engine.launch_geometry(
+            nslot, dt, n, cuda_engine.scheduler_warps(kernel, m)).split
+        outs, ms = {}, {}
+        for split in sorted(cuda_engine.SPLITS):
+            geo = cuda_engine._blocks(cuda_engine.ROW_VALS * nslot * 4, n,
+                                      split)
+            outs[split] = run(geo)
+            torch.cuda.synchronize()
+            if cuda_engine.geometry[kernel]["split"] != split:
+                raise AssertionError(f"{label}: geometry[{kernel!r}] says "
+                                     "another split than the launch's")
+            ms[split] = float(np.median(event_ms(lambda: run(geo), iters)))
+        differ = {k: sum(int((a != b).sum()) for a, b in zip(v, outs[1]))
+                  for k, v in outs.items() if k != 1}
+        log(f"check split {label}: n={n}, values differing in any bit from "
+            f"split 1: {differ}; ms a launch by split (CUDA events, median "
+            f"of {iters}): " + ", ".join(f"{k}: {v:.3f}" for k, v in
+                                         ms.items())
+            + f"; launch_geometry takes split {chosen}; card: {rec['card']}")
+        if any(differ.values()):
+            raise AssertionError(f"{label}: the splits disagree: {differ}")
+        rec["split_checks"][label] = {"n": n, "split": chosen, "ms": ms}
+
+    for label, model, kind in (("B2 fast_plant env", "fast_plant",
+                                "grounded"),
+                               ("B2 full env pressed", "full", "low")):
+        m = getattr(spec, f"get_{model}_model")()
+        ls, ctrl = lane_inputs(m, kind, N_ENVS, np.random.default_rng(seed),
+                               dt, dev)
+        same(label, SUBSTEP, m, N_ENVS,
+             lambda geo: tuple(cuda_engine._launch_substeps(
+                 m, ls, ctrl, ENV_FRAME_SKIP, *BUDGET["fast_plant"], None,
+                 True, geometry=geo)))
+    for label, model, kind, S, budget in (
+            ("B1 planning replan", "planning", "grounded", REPLAN_S,
+             BUDGET["planning"]),
+            ("B1 full pressed", "full", "low", N_ENVS,
+             BUDGET["fast_plant"])):
+        m = getattr(spec, f"get_{model}_model")()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        state = start_state(m, kind, np.random.default_rng(seed), dt, dev)
+        seqs = random_seqs(gen, S, 1, dt, dev, 0.3)
+        cmd, prev = command(dt, dev, 0.2, 0.1, 0.3), prev_ctrl(dt, dev)
+        same(label, ROLLOUT, m, S,
+             lambda geo: (cuda_engine.fused_rollout_cost(
+                 m, state, seqs, cmd, prev, FRAME_SKIP, *budget,
+                 _geometry=geo),))
+
+    # the closed loop's planner from a state settled on its feet: 300
+    # control steps of 10 substeps (6 s) under the hold control
+    walk = _example("torch_closed_loop_walk").mpc_config().mppi
+    S, H, fs = walk.num_samples, walk.rollout.horizon, walk.rollout.frame_skip
+    it, lsi = walk.lane_newton_iterations, walk.lane_ls_iterations
+    m = spec.get_planning_model()
+    ls, _ = lane_inputs(m, "grounded", 32, np.random.default_rng(seed), dt,
+                        dev)
+    hold = prev_ctrl(dt, dev)[:, None].expand(12, 32).contiguous()
+    for _ in range(300):
+        ls = cuda_engine.control_step(m, ls, hold, 10, it, lsi)
+    state = State(*(x[..., 0].contiguous() for x in ls))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    seqs = random_seqs(gen, S, H, dt, dev, 0.2)
+    cmd, prev = command(dt, dev, 0.2), prev_ctrl(dt, dev)
+    same(f"B1 loop shape settled ({it}/{lsi}, H={H})", ROLLOUT, m, S,
+         lambda geo: (cuda_engine.fused_rollout_cost(
+             m, state, seqs, cmd, prev, fs, it, lsi, _geometry=geo),))
 
 
 def check_decimations(rec, S=1024, B=2048):
@@ -805,9 +915,9 @@ def check_decimations(rec, S=1024, B=2048):
             ("B1 planning n_directions=64", coarse,
              cuda_engine.KERNEL_SOURCE, S)):
         nslot = cuda_engine.model_slots(m)
-        geo = cuda_engine.launch_geometry(nslot, f32, n)
+        geo = geometry_of(source, m, f32, n)
         info = cuda_engine.kernel_info(source, f32, geo.threads,
-                                       geo.smem_bytes)
+                                       geo.smem_bytes, geo.split)
         row = {"n": n, "hull_verts": [len(v) for v in m.col_hull_verts],
                "slot_budgets": list(cuda_engine.slot_budgets(m)),
                "grid": geo.grid, "threads": geo.threads,
@@ -3356,7 +3466,7 @@ def phase_time_substep(rec, iters=5, seed=8):
         plain = event_ms(lambda: cuda_engine.control_step_reference(
             m, ls, ctrl, fs, it, lsi), 1)
         ops = cuda_engine.substep_flops(m, fs, it, lsi)
-        geo = cuda_engine.launch_geometry(cuda_engine.model_slots(m), dt, B)
+        geo = geometry_of(cuda_engine.SUBSTEP_SOURCE, m, dt, B)
         nbytes = 4 * B * (2 * (m.nq + m.nv + m.na) + m.nu + m.nsensordata)
         t_ops, t_bytes = B * ops / PEAK_FP32, nbytes / PEAK_BYTES
         row = {"B": B, "frame_skip": fs, "budget": [it, lsi],

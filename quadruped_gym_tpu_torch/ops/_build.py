@@ -15,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -101,11 +102,20 @@ def build_all(sources=None, dtypes=("float32", "float64")) -> None:
 
 def ptxas_report(source: str, dtype: str) -> str:
     """What ``nvcc -Xptxas -v`` said about the built library's kernels:
-    registers, stack frame, spill stores and loads."""
+    registers, stack frame, spill stores and loads, under each kernel's
+    name and split (``substep_kernel<4>``)."""
     with open(_lib_path(source, dtype) + ".log") as f:
         lines = f.read().splitlines()
     keep = ("registers", "spill", "stack frame")
-    return "\n".join(ln.strip() for ln in lines if any(k in ln for k in keep))
+    out = []
+    for ln in lines:
+        name = re.search(
+            r"Function properties for _ZN2qg\d+([a-z_]+)ILi(\d+)E", ln)
+        if name:
+            out.append(f"{name.group(1)}<{name.group(2)}>:")
+        elif any(k in ln for k in keep):
+            out.append(ln.strip())
+    return "\n".join(out)
 
 
 def load(source: str, dtype: str) -> ctypes.CDLL:

@@ -11,12 +11,16 @@ namespace qg {
 
 #define QG_DEV __device__ __forceinline__
 
-// On the card a robot is carried by an aligned quad of a warp, one thread
-// per leg (lane & 3 is the leg). quad_sum adds a value over the quad by
-// two butterfly steps; every lane gets (a0 + a1) + (a2 + a3) bit for bit,
-// because IEEE addition commutes. All 32 lanes of the warp must call it
-// together: the kernels keep every thread alive and mask only the stores.
-// A host build (QG_HOST) supplies its own quad_sum before this header.
+// On the card a robot is carried by 4 x SPLIT lanes of a warp: SPLIT
+// replicas of an aligned quad, one thread per leg (lane & 3 is the leg,
+// (lane >> 2) & (SPLIT - 1) the replica; SPLIT is 1, 2 or 4). Every
+// replica runs the whole substep on the same bits, and splits only the
+// hull-vertex scans with the others (leg_substep.cuh). quad_sum adds a
+// value over the quad by two butterfly steps; every lane gets
+// (a0 + a1) + (a2 + a3) bit for bit, because IEEE addition commutes. All
+// 32 lanes of the warp must call it together: the kernels keep every
+// thread alive and mask only the stores. A host build (QG_HOST) supplies
+// its own quad_sum, lane_best and replica_fence before this header.
 #ifndef QG_HOST
 template <typename T> QG_DEV T quad_sum(T v) {
   v = v + __shfl_xor_sync(0xffffffffu, v, 1);
@@ -32,17 +36,60 @@ template <typename T> QG_DEV bool beats(T ov, int oi, T v, int i, bool lower) {
   return (lower ? ov < v : ov > v) || (ov == v && oi < i);
 }
 
-// The best (value, index) over the quad by the same two butterfly steps:
-// every lane gets the same pair. A host build supplies its own.
+// The best (value, index) over the lanes lane ^ m, m = FIRST, 2 FIRST, ..
+// below LANES, by butterfly steps: every such lane gets the same pair.
+// FIRST = 1, LANES = 4 is the quad; FIRST = 4 the replicas of one leg. The
+// second form carries ``h`` with the winner. A host build supplies both.
 #ifndef QG_HOST
-template <typename T> QG_DEV void quad_best(T& v, int& i, bool lower) {
+template <int FIRST, int LANES, typename T> QG_DEV void lane_best(T& v, int& i, bool lower) {
 #pragma unroll
-  for (int m = 1; m <= 2; m <<= 1) {
+  for (int m = FIRST; m < LANES; m <<= 1) {
     const T ov = __shfl_xor_sync(0xffffffffu, v, m);
     const int oi = __shfl_xor_sync(0xffffffffu, i, m);
     if (beats(ov, oi, v, i, lower)) { v = ov; i = oi; }
   }
 }
+
+template <int FIRST, int LANES, typename T>
+QG_DEV void lane_best(T& v, int& i, T& h, bool lower) {
+#pragma unroll
+  for (int m = FIRST; m < LANES; m <<= 1) {
+    const T ov = __shfl_xor_sync(0xffffffffu, v, m);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, m);
+    const T oh = __shfl_xor_sync(0xffffffffu, h, m);
+    if (beats(ov, oi, v, i, lower)) { v = ov; i = oi; h = oh; }
+  }
+}
+
+// Orders the shared-memory accesses of a robot's replicas, which share
+// one column of contact rows a leg (leg_step.cuh::RowStore)
+QG_DEV void replica_fence() { __syncwarp(); }
+#endif
+
+// log2 of a split of 1, 2 or 4 replicas
+template <int SPLIT> constexpr int split_log = SPLIT == 4 ? 2 : SPLIT == 2 ? 1 : 0;
+
+#ifndef QG_HOST
+// Where a thread of a kernel instantiated for SPLIT replicas sits: its
+// robot over the grid, its leg, its replica, and the column of the
+// block's contact rows it shares with its leg's replicas (a stride of
+// blockDim.x / SPLIT).
+template <int SPLIT> struct LaneIndex {
+  static constexpr int LOG = split_log<SPLIT>;
+  int robot, leg, rep, col;
+  QG_DEV LaneIndex() {
+    robot = (blockIdx.x * blockDim.x + threadIdx.x) >> (2 + LOG);
+    leg = threadIdx.x & 3;
+    if constexpr (SPLIT == 1) {
+      rep = 0;
+      col = threadIdx.x;
+    } else {
+      rep = (threadIdx.x >> 2) & (SPLIT - 1);
+      col = ((threadIdx.x >> (2 + LOG)) << 2) | leg;
+    }
+  }
+  QG_DEV static size_t stride() { return blockDim.x >> LOG; }
+};
 #endif
 
 // Sum of term(j) over the four legs of a robot, for a thread that owns NL
@@ -58,15 +105,17 @@ template <int NL, typename T, typename F> QG_DEV T leg_sum(F&& term) {
 }
 
 // The best (value, index) pair over the four legs' pairs (see beats), for
-// a thread that owns NL of them; every owned leg gets it.
-template <int NL, typename T> QG_DEV void leg_best(T v[NL], int i[NL], bool lower) {
+// a thread that owns NL of them; every owned leg gets it. With SPLIT
+// replicas (NL = 1) the pairs of all 4 x SPLIT lanes of the robot.
+template <int NL, int SPLIT, typename T> QG_DEV void leg_best(T v[NL], int i[NL], bool lower) {
   static_assert(NL == 4 || NL == 1, "a thread owns four legs or one");
+  static_assert(NL == 1 || SPLIT == 1, "replicas take one leg a thread");
   if constexpr (NL == 4) {
     for (int l = 1; l < 4; ++l)
       if (beats(v[l], i[l], v[0], i[0], lower)) { v[0] = v[l]; i[0] = i[l]; }
     for (int l = 1; l < 4; ++l) { v[l] = v[0]; i[l] = i[0]; }
   } else {
-    quad_best<T>(v[0], i[0], lower);
+    lane_best<1, 4 * SPLIT>(v[0], i[0], lower);
   }
 }
 

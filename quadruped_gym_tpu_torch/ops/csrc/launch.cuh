@@ -1,13 +1,16 @@
 // Launch limits and helpers shared by the two kernels. A robot is carried
-// by an aligned quad of threads (one per leg), so a launch over n robots
-// has 4 n threads; the block size and the dynamic shared memory (the
-// contact rows, ROW_VALS values per slot and thread) are chosen in
-// ops/cuda_engine.py::launch_geometry from the packed model and the type
-// and passed in. The constants here bound that choice and are mirrored
+// by SPLIT aligned quads of threads (one thread per leg and replica,
+// lane_math.cuh), so a launch over n robots has 4 SPLIT n threads; the
+// split, the block size and the dynamic shared memory (the contact rows,
+// ROW_VALS values per slot and leg column) are chosen in
+// ops/cuda_engine.py::launch_geometry from the packed model, the type and
+// n, and passed in. The constants here bound that choice and are mirrored
 // there: tests/test_torch_launch.py holds the two together.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace qg {
 
@@ -33,6 +36,17 @@ template <typename K> int allow_shared(K kernel, int smem_bytes) {
 // What the runtime says of a kernel at a block size and shared size:
 // registers per thread, local (stack + spill) bytes per thread, and the
 // blocks of it that fit an SM together.
+// f(std::integral_constant<int, SPLIT>()) for a split of 1, 2 or 4;
+// cudaErrorInvalidValue for any other
+template <typename F> int with_split(int split, F&& f) {
+  switch (split) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename K>
 int kernel_info(K kernel, int threads, int smem_bytes, int* registers, int* local_bytes,
                 int* blocks_per_sm) {

@@ -11,6 +11,10 @@
 // quantities; the replicas stay bit-identical because the only cross-leg
 // terms are leg_sum() (lane_math.cuh), which gives every thread the same
 // bits. Every thread of a quad takes the same branches around a leg_sum.
+// On the card a robot may also be carried by SPLIT replicas of its quad
+// (lane_math.cuh): they run the same code on the same bits and split only
+// the hull-vertex scans (leg_substep.cuh); with SPLIT = 1 that code is not
+// compiled.
 //
 // Indexing: level k in {hip, knee, ankle}, owned leg j (robot leg
 // leg0 + j); dof 6+3l+k, qpos 7+3l+k, actuator 3l+k. Everything spatial is
@@ -233,30 +237,39 @@ constexpr int ROW_VALS = 40;
 // the block size, so a warp's 32 accesses to one value fall on 32
 // different banks; only the model's own slots (sum of grp_nslot) are laid
 // out. Slot indices are run-time values, which is why the rows are not in
-// registers.
-template <int NL, typename T> struct RowStore {
+// registers. With SPLIT > 1 the SPLIT replicas of a leg (lane_math.cuh)
+// share its one column: they read it together (a broadcast), and every
+// replica writes the same bits to it, between two fences, so that no
+// replica reads a value before all have written it or overwrites one that
+// another still reads (the shuffles between the phases are no memory
+// fence).
+template <int NL, typename T, int SPLIT = 1> struct RowStore {
   T* p;
   size_t stride;
   QG_DEV T& at(int s, int v, int l) const {
     return p[((size_t)(s * ROW_VALS + v) * NL + l) * stride];
   }
+  QG_DEV void fence() const {
+    if constexpr (SPLIT > 1) replica_fence();
+  }
 };
 
 // Contact and joint-limit rows of one substep. Slots are numbered
 // group-major, then by slot index; a slot's friction is its group's.
-template <int NL, typename T> struct Rows {
+template <int NL, typename T, int SPLIT = 1> struct Rows {
   const LegModel<T>* M;
   bool has_friction;
   T friction;
   T lim_sign[3][NL];
   T lim_aref[3][NL];
   T lim_D[3][NL];
-  RowStore<NL, T> st;
+  RowStore<NL, T, SPLIT> st;
   QG_DEV T mu(int g) const { return has_friction ? friction : M->grp_friction[g]; }
 };
 
 // f(s, mu) for every slot s of the model, in order
-template <int NL, typename T, typename F> QG_DEV void for_each_slot(const Rows<NL, T>& R, F&& f) {
+template <int NL, typename T, int SPLIT, typename F>
+QG_DEV void for_each_slot(const Rows<NL, T, SPLIT>& R, F&& f) {
   int s = 0;
   for (int g = 0; g < R.M->ngroup; ++g) {
     const T mu = R.mu(g);
@@ -270,13 +283,14 @@ template <typename T> QG_DEV T active_weight(T jar, T D) {
 
 // J x over all rows: lim into jl (3, NL), slot facets into row value
 // ``out`` (ROW_JAR or ROW_JD), less aref when ``sub_aref``
-template <int NL, typename T>
-QG_DEV void rows_matvec(const Rows<NL, T>& R, const T xf[6], const T xl[3][NL], T jl[3][NL],
-                        int out, bool sub_aref) {
+template <int NL, typename T, int SPLIT>
+QG_DEV void rows_matvec(const Rows<NL, T, SPLIT>& R, const T xf[6], const T xl[3][NL],
+                        T jl[3][NL], int out, bool sub_aref) {
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
     for (int l = 0; l < NL; ++l) jl[k][l] = R.lim_sign[k][l] * xl[k][l];
+  R.st.fence();
   for_each_slot(R, [&](int s, T mu) {
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
@@ -299,12 +313,13 @@ QG_DEV void rows_matvec(const Rows<NL, T>& R, const T xf[6], const T xl[3][NL], 
       }
     }
   });
+  R.st.fence();
 }
 
 // Jᵀ y with y = w * jar on every row, w the active weight of jar. Each
 // leg gathers its slots' free-dof terms; the legs are added once.
-template <int NL, typename T>
-QG_DEV void rows_tmatvec_active(const Rows<NL, T>& R, const T yl_in[3][NL], T yf[6],
+template <int NL, typename T, int SPLIT>
+QG_DEV void rows_tmatvec_active(const Rows<NL, T, SPLIT>& R, const T yl_in[3][NL], T yf[6],
                                 T yl[3][NL]) {
   T c[6][NL];
 #pragma unroll
@@ -346,8 +361,8 @@ QG_DEV void rows_tmatvec_active(const Rows<NL, T>& R, const T yl_in[3][NL], T yf
 // H = M + Jᵀ diag(w) J on the block pattern, w the active weights. Each
 // leg gathers its slots' share of the free block; the legs are added once
 // per entry.
-template <int NL, typename T>
-QG_DEV void add_jwj(const Blocks<NL, T>& M, const Rows<NL, T>& R, const T wl[3][NL],
+template <int NL, typename T, int SPLIT>
+QG_DEV void add_jwj(const Blocks<NL, T>& M, const Rows<NL, T, SPLIT>& R, const T wl[3][NL],
                     Blocks<NL, T>& H) {
   H = M;
   T ffl[6][6][NL];  // each leg's share of the free block, [i][j <= i][leg]
@@ -409,8 +424,8 @@ QG_DEV void add_jwj(const Blocks<NL, T>& M, const Rows<NL, T>& R, const T wl[3][
 }
 
 // primal Newton on the constraint rows; x (in: unconstrained qacc) -> qacc
-template <int NL, typename T>
-QG_DEV void newton_solve(const Blocks<NL, T>& M, const Rows<NL, T>& R, const T qaf[6],
+template <int NL, typename T, int SPLIT>
+QG_DEV void newton_solve(const Blocks<NL, T>& M, const Rows<NL, T, SPLIT>& R, const T qaf[6],
                          const T qal[3][NL], int iterations, int ls_iterations, T xf[6],
                          T xl[3][NL]) {
   T jarl[3][NL], jdl[3][NL], wl[3][NL];

@@ -41,12 +41,17 @@ QG_DEV void terrain_plane(const LegModel<T>& M, const Domain<T>& dp, T x, T y, T
 // (pre-integration values too): a joint position by the thread that owns
 // the joint's leg, the base-site sensors by the thread that owns leg 0.
 // Without FULL that code is not compiled, so the fused rollout pays
-// nothing for it.
-template <int NL, bool FULL, typename T>
-QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0,
+// nothing for it. ``rep`` is the thread's replica of its leg, below the
+// rows' SPLIT (lane_math.cuh); every replica computes and writes the same
+// bits.
+template <int NL, bool FULL, int SPLIT, typename T>
+QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0, int rep,
                              LegState<NL, T>& st, const T ctrl[3][NL], int iterations,
-                             int ls_iterations, RowStore<NL, T> rows, CostSensors<T>* sens,
-                             T* full, size_t stride) {
+                             int ls_iterations, RowStore<NL, T, SPLIT> rows,
+                             CostSensors<T>* sens, T* full, size_t stride) {
+  static_assert(SPLIT == 1 || SPLIT == 2 || SPLIT == 4 || SPLIT == 8,
+                "a robot's 4 x SPLIT lanes fit one warp");
+  static_assert(NL == 1 || SPLIT == 1, "replicas take one leg a thread");
   const T h = M.timestep;
   T (&ql)[3][NL] = st.q;
   T (&qvl)[3][NL] = st.qv;
@@ -293,7 +298,7 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
 
   // ---- contacts + constraint rows + Newton ----
   if (iterations > 0) {
-    Rows<NL, T> R;
+    Rows<NL, T, SPLIT> R;
     R.M = &M;
     R.has_friction = dp.has_friction;
     R.friction = dp.friction;
@@ -328,8 +333,16 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
     // the base's frame; the base's single geom (LEVEL_BASE_ONE) is the
     // same geom in every thread of the quad, whose threads scan a quarter
     // of its hull each and share the winners (leg_best), and leg 0 keeps
-    // its slots: the other legs' copies of them are never active.
+    // its slots: the other legs' copies of them are never active. With
+    // replicas, replica r scans the share [r V / SPLIT, (r + 1) V / SPLIT)
+    // of its leg's hull (of its leg's quarter of the base's single geom)
+    // and the replicas share the winners the same way (lane_best), the
+    // height of a winner coming with it (recomputed from the index for the
+    // base's single geom, as in the quad). Ties go to the lower index, so
+    // every winner is the serial scan's and the rows do not depend on
+    // SPLIT.
     int ns = 0;
+    rows.fence();
     for (int g = 0; g < M.ngroup; ++g) {
       const int level = M.grp_level[g];
       const bool one = level == LEVEL_BASE_ONE;
@@ -353,12 +366,22 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
           }
       }
       // the vertices this thread scans for each owned leg: all of the
-      // leg's hull, or a quarter of the base's single geom
+      // leg's hull, or a quarter of the base's single geom; with replicas,
+      // the replica's share of that. lo < V: every share starts on a
+      // vertex of the hull, and an empty share's one pair is another's.
       int lo[NL], hi_[NL];
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
-        lo[l] = one ? ((leg0 + l) * V) >> 2 : 0;
-        hi_[l] = one ? ((leg0 + l + 1) * V) >> 2 : V;
+        if constexpr (SPLIT == 1) {
+          lo[l] = one ? ((leg0 + l) * V) >> 2 : 0;
+          hi_[l] = one ? ((leg0 + l + 1) * V) >> 2 : V;
+        } else {
+          // one of 4 SPLIT parts of the base's geom, or of SPLIT of a leg's
+          const int part = one ? (leg0 + l) * SPLIT + rep : rep;
+          const int shift = one ? split_log<SPLIT> + 2 : split_log<SPLIT>;
+          lo[l] = (part * V) >> shift;
+          hi_[l] = ((part + 1) * V) >> shift;
+        }
       }
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
@@ -395,7 +418,8 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
           const T hi = height(i, l);
           if (hi < h0[l]) { h0[l] = hi; i0[l] = i; }
         }
-      if (one) leg_best<NL>(h0, i0, true);
+      if (one) leg_best<NL, SPLIT>(h0, i0, true);
+      else if constexpr (SPLIT > 1) lane_best<4, 4 * SPLIT>(h0[0], i0[0], true);
       // slot 1: farthest in-plane candidate from v0
       T v0[NL][3];  // the deepest vertex, read once (its index differs by thread)
 #pragma unroll
@@ -418,9 +442,11 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
             if (s > d1[l]) { d1[l] = s; i1[l] = i; h1[l] = hi; }
           }
         if (one) {
-          leg_best<NL>(d1, i1, false);
+          leg_best<NL, SPLIT>(d1, i1, false);
 #pragma unroll
           for (int l = 0; l < NL; ++l) h1[l] = i1[l] >= 0 ? height(i1[l], l) : T(0);
+        } else if constexpr (SPLIT > 1) {
+          lane_best<4, 4 * SPLIT>(d1[0], i1[0], h1[0], false);
         }
       }
       // slot 2: largest spread across the v0-v1 line
@@ -449,9 +475,11 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
             if (s > c2[l]) { c2[l] = s; i2[l] = i; h2[l] = hi; }
           }
         if (one) {
-          leg_best<NL>(c2, i2, false);
+          leg_best<NL, SPLIT>(c2, i2, false);
 #pragma unroll
           for (int l = 0; l < NL; ++l) h2[l] = i2[l] >= 0 ? height(i2[l], l) : T(0);
+        } else if constexpr (SPLIT > 1) {
+          lane_best<4, 4 * SPLIT>(c2[0], i2[0], h2[0], false);
         }
       }
       // emit the group's slots as constraint rows
@@ -521,6 +549,7 @@ QG_DEV void leg_substep_impl(const LegModel<T>& M, const Domain<T>& dp, int leg0
       }
       ns += nslot;
     }
+    rows.fence();
     T qaf[6], qal[3][NL];
     for (int i = 0; i < 6; ++i) qaf[i] = xf[i];
     for (int k = 0; k < 3; ++k)

@@ -1,7 +1,8 @@
 // One rollout: H control steps x frame_skip substeps plus the walking
 // stage cost (pallas_engine.py::_lane_stage_cost), for rollout ``s``, in a
-// thread that owns NL of the robot's legs (leg_step.cuh). Shared by the
-// CUDA kernel (NL = 1) and a host build of the same source.
+// thread that owns NL of the robot's legs (leg_step.cuh), replica ``rep``
+// of them (lane_math.cuh). Shared by the CUDA kernel (NL = 1) and a host
+// build of the same source.
 #pragma once
 
 #include "leg_step.cuh"
@@ -68,11 +69,11 @@ QG_DEV void load_shared_state(const T* qpos0, const T* qvel0, const T* act0, int
 }
 
 // Total cost of rollout s; every thread of the robot returns the same bits.
-template <int NL, typename T>
+template <int NL, typename T, int SPLIT>
 QG_DEV T rollout_cost(const LegModel<T>& M, const T* qpos0, const T* qvel0, const T* act0,
                       const T* seqs, const T* prev0, const T* cmd, const DomainLanes<T>& lanes,
-                      int leg0, int s, int S, int H, int frame_skip, int iterations,
-                      int ls_iterations, T height, RowStore<NL, T> rows) {
+                      int leg0, int rep, int s, int S, int H, int frame_skip, int iterations,
+                      int ls_iterations, T height, RowStore<NL, T, SPLIT> rows) {
   const Domain<T> dp = load_domain(lanes, (size_t)s);
   LegState<NL, T> st;
   load_shared_state(qpos0, qvel0, act0, leg0, st);
@@ -90,12 +91,12 @@ QG_DEV T rollout_cost(const LegModel<T>& M, const T* qpos0, const T* qvel0, cons
       for (int l = 0; l < NL; ++l)
         ctrl[k][l] = seqs[((size_t)t * 12 + 3 * (leg0 + l) + k) * S + s];
     for (int sub = 0; sub + 1 < frame_skip; ++sub)
-      leg_substep_impl<NL, false>(M, dp, leg0, st, ctrl, iterations, ls_iterations, rows,
+      leg_substep_impl<NL, false>(M, dp, leg0, rep, st, ctrl, iterations, ls_iterations, rows,
                                   static_cast<CostSensors<T>*>(nullptr),
                                   static_cast<T*>(nullptr), (size_t)0);
     CostSensors<T> sens;
-    leg_substep_impl<NL, false>(M, dp, leg0, st, ctrl, iterations, ls_iterations, rows, &sens,
-                                static_cast<T*>(nullptr), (size_t)0);
+    leg_substep_impl<NL, false>(M, dp, leg0, rep, st, ctrl, iterations, ls_iterations, rows,
+                                &sens, static_cast<T*>(nullptr), (size_t)0);
     cost = cost + stage_cost<NL>(sens, leg0, ctrl, prev, cmd, height, M.joint_centers);
 #pragma unroll
     for (int k = 0; k < 3; ++k)

@@ -42,6 +42,25 @@
 // code size does not grow with the hulls; selections are strict < / >
 // compare-and-keep, as the plain version's _collide_loop.
 //
+// Replicas (a template parameter, SPLIT in 1, 2, 4): below ~8,192
+// rollouts the grid leaves the SMs with a few warps each, and nothing
+// hides the latency of the dependent chains. The wrapper then takes the
+// largest SPLIT whose 4 SPLIT S threads are one wave of at most one warp
+// a scheduler (ops/cuda_engine.py::launch_geometry), and a rollout is
+// carried by SPLIT quads (lane (lane >> 2) & (SPLIT - 1) is the
+// replica). Every replica runs the whole rollout on the same bits; the
+// three vertex passes of each contact group are the one
+// exception: replica r scans the share [r V / SPLIT, (r + 1) V / SPLIT) of
+// its leg's hull, and the replicas exchange winners by butterfly shuffles
+// over the replica bits (xor 4, 8; lane_math.cuh::lane_best), ties to
+// the lower index, so that every winner, and the cost, is the serial
+// scan's at every SPLIT. The rows are not replicated: the replicas of a
+// leg share its column (a stride of T / SPLIT), read it as a broadcast and
+// all write the same bits to it between two __syncwarp fences
+// (leg_step.cuh::RowStore), so a warp keeps 32 / SPLIT columns of rows.
+// Only replica 0 of leg 0 stores the cost. At SPLIT = 1 none of this is
+// compiled: the kernel is the quad form above.
+//
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 // -std=c++17 -O3 -shared -Xcompiler -fPIC -DQG_REAL=float|double.
 
@@ -56,6 +75,7 @@ namespace qg {
 
 using Real = QG_REAL;
 
+template <int SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 fused_rollout_kernel(const LegModel<Real>* __restrict__ model, const Real* __restrict__ qpos0,
                      const Real* __restrict__ qvel0, const Real* __restrict__ act0,
@@ -64,15 +84,14 @@ fused_rollout_kernel(const LegModel<Real>* __restrict__ model, const Real* __res
                      Real* __restrict__ out, int S, int H, int frame_skip, int iterations,
                      int ls_iterations, Real height) {
   extern __shared__ __align__(16) unsigned char qg_smem[];
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 2;
-  const int leg = threadIdx.x & 3;
-  const bool valid = r < S;
-  const int s = valid ? r : S - 1;
-  const RowStore<1, Real> rows{reinterpret_cast<Real*>(qg_smem) + threadIdx.x,
-                               (size_t)blockDim.x};
-  const Real cost = rollout_cost<1>(*model, qpos0, qvel0, act0, seqs, prev0, cmd, lanes, leg, s,
-                                    S, H, frame_skip, iterations, ls_iterations, height, rows);
-  if (valid && leg == 0) out[s] = cost;
+  const LaneIndex<SPLIT> t;
+  const bool valid = t.robot < S;
+  const int s = valid ? t.robot : S - 1;
+  const RowStore<1, Real, SPLIT> rows{reinterpret_cast<Real*>(qg_smem) + t.col, t.stride()};
+  const Real cost = rollout_cost<1>(*model, qpos0, qvel0, act0, seqs, prev0, cmd, lanes, t.leg,
+                                    t.rep, s, S, H, frame_skip, iterations, ls_iterations,
+                                    height, rows);
+  if (valid && t.leg == 0 && t.rep == 0) out[s] = cost;
 }
 
 }  // namespace qg
@@ -82,15 +101,18 @@ extern "C" {
 // struct before the first upload
 int qg_model_size() { return (int)sizeof(qg::LegModel<QG_REAL>); }
 
-// registers, local bytes and resident blocks per SM of the kernel at a
-// block size and dynamic shared size; returns a CUDA error code, 0 if none
-int qg_kernel_info(int threads, int smem_bytes, int* registers, int* local_bytes,
+// registers, local bytes and resident blocks per SM of the kernel for
+// ``split`` replicas at a block size and dynamic shared size; returns a
+// CUDA error code, 0 if none
+int qg_kernel_info(int threads, int smem_bytes, int split, int* registers, int* local_bytes,
                    int* blocks_per_sm) {
-  return qg::kernel_info(qg::fused_rollout_kernel, threads, smem_bytes, registers,
-                         local_bytes, blocks_per_sm);
+  return qg::with_split(split, [&](auto s) {
+    return qg::kernel_info(qg::fused_rollout_kernel<decltype(s)::value>, threads, smem_bytes,
+                           registers, local_bytes, blocks_per_sm);
+  });
 }
 
-// Launch ``grid`` blocks of ``threads`` (4 threads a rollout) with
+// Launch ``grid`` blocks of ``threads`` (4 ``split`` threads a rollout) with
 // ``smem_bytes`` of dynamic shared memory on ``stream``; returns the CUDA
 // error of the request or of the launch (0 on success). Every pointer is
 // device memory; DomainParams lanes are nullptr where nominal.
@@ -100,19 +122,22 @@ int qg_fused_rollout(const void* model, const void* qpos0, const void* qvel0, co
                      const void* tilt_x, const void* tilt_y, const void* terrain_amp,
                      const void* terrain_freq, void* out, int S, int H, int frame_skip,
                      int iterations, int ls_iterations, double height, int grid, int threads,
-                     int smem_bytes, void* stream) {
+                     int smem_bytes, int split, void* stream) {
   using qg::Real;
   qg::DomainLanes<Real> lanes{(const Real*)friction,    (const Real*)gain_scale,
                               (const Real*)base_mass_scale, (const Real*)tilt_x,
                               (const Real*)tilt_y,      (const Real*)terrain_amp,
                               (const Real*)terrain_freq};
-  const int err = qg::allow_shared(qg::fused_rollout_kernel, smem_bytes);
-  if (err != 0) return err;
-  qg::fused_rollout_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const qg::LegModel<Real>*)model, (const Real*)qpos0, (const Real*)qvel0,
-      (const Real*)act0, (const Real*)seqs, (const Real*)prev0, (const Real*)cmd, lanes,
-      (Real*)out, S, H, frame_skip, iterations, ls_iterations, (Real)height);
-  return (int)cudaGetLastError();
+  return qg::with_split(split, [&](auto sp) {
+    const auto kernel = qg::fused_rollout_kernel<decltype(sp)::value>;
+    const int err = qg::allow_shared(kernel, smem_bytes);
+    if (err != 0) return err;
+    kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+        (const qg::LegModel<Real>*)model, (const Real*)qpos0, (const Real*)qvel0,
+        (const Real*)act0, (const Real*)seqs, (const Real*)prev0, (const Real*)cmd, lanes,
+        (Real*)out, S, H, frame_skip, iterations, ls_iterations, (Real)height);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // One lane of the substep kernel: ``nsub`` substeps under a constant
 // control on lane ``b`` of the batch-minor (d, B) state arrays, in a
-// thread that owns NL of the robot's legs (leg_step.cuh). Shared by the
-// CUDA kernel (NL = 1) and a host build of the same source.
+// thread that owns NL of the robot's legs (leg_step.cuh), replica ``rep``
+// of them (lane_math.cuh). Shared by the CUDA kernel (NL = 1) and a host
+// build of the same source.
 #pragma once
 
 #include "leg_step.cuh"
@@ -14,13 +15,14 @@ namespace qg {
 // base rows if it owns leg 0. sens_out (nsensordata, B) gets the
 // pre-integration sensors of the LAST substep when compute_sensors is
 // set, else zeros. With ``store`` false (a thread past the ragged edge,
-// kept alive for the quad sums) nothing is written.
-template <int NL, typename T>
+// kept alive for the quad sums, or a replica other than 0) nothing is
+// written.
+template <int NL, typename T, int SPLIT>
 QG_DEV void lane_substeps(const LegModel<T>& M, const T* qpos, const T* qvel, const T* act_in,
                           const T* ctrl_in, const DomainLanes<T>& lanes, T* qpos_out,
-                          T* qvel_out, T* act_out, T* sens_out, int leg0, size_t b, size_t B,
-                          int nsub, int iterations, int ls_iterations, bool compute_sensors,
-                          bool store, RowStore<NL, T> rows) {
+                          T* qvel_out, T* act_out, T* sens_out, int leg0, int rep, size_t b,
+                          size_t B, int nsub, int iterations, int ls_iterations,
+                          bool compute_sensors, bool store, RowStore<NL, T, SPLIT> rows) {
   const Domain<T> dp = load_domain(lanes, b);
   const bool base_owner = leg0 == 0;
   LegState<NL, T> st;
@@ -43,7 +45,7 @@ QG_DEV void lane_substeps(const LegModel<T>& M, const T* qpos, const T* qvel, co
   for (int sub = 0; sub < nsub; ++sub) {
     T* full = (compute_sensors && store && sub + 1 == nsub) ? sens_out + b
                                                              : static_cast<T*>(nullptr);
-    leg_substep_impl<NL, true>(M, dp, leg0, st, ctrl, iterations, ls_iterations, rows,
+    leg_substep_impl<NL, true>(M, dp, leg0, rep, st, ctrl, iterations, ls_iterations, rows,
                                static_cast<CostSensors<T>*>(nullptr), full, B);
   }
 

@@ -19,10 +19,12 @@ version (``fused_rollout_cost_reference``, ``step_reference``,
 The model's constants are packed into one ``LegModel`` struct
 (``csrc/leg_model.cuh``) and uploaded once per (model, dtype, device).
 
-Both kernels give a robot to four threads, one per leg, and keep the
-contact rows of the model's slots in dynamic shared memory.
-``launch_geometry`` chooses the block size, the grid and the shared bytes
-of a launch from the model's slot count and the type; the C launch
+Both kernels give a robot to four threads, one per leg, times a split of
+1, 2 or 4 replicas that share the hull-vertex scans, and keep the
+contact rows of the model's slots in dynamic shared memory, one column a
+leg. ``launch_geometry`` chooses the split, the block size, the grid and
+the shared bytes of a launch from the model's slot count, the type, the
+batch and the warps a scheduler its replicas may fill; the C launch
 functions take them as arguments.
 """
 
@@ -69,7 +71,11 @@ _SENSOR_DIMS = {SENSOR_JOINTPOS: 1, SENSOR_ACCELEROMETER: 3, SENSOR_GYRO: 3,
 # __launch_bounds__: largest block, blocks an SM must hold of it);
 # the rest are the H100's: SMs, dynamic shared memory a block may ask for
 # (227 KB), and the shared memory of an SM (228 KB), of which each resident
-# block costs 1 KB besides its own.
+# block costs 1 KB besides its own, and the warp schedulers of an SM.
+# SPLITS: the replicas of a leg the kernels are built for
+# (csrc/launch.cuh::with_split), largest first. LONG_SCANS: the packed
+# hull vertices from which the substep kernel's replicas may fill two
+# warps a scheduler (``scheduler_warps``).
 ROW_VALS = 40
 MAX_SLOTS = 3 * MAX_GROUPS
 MAX_THREADS = 128
@@ -79,6 +85,9 @@ SMEM_PER_BLOCK = 227 * 1024
 SMEM_PER_SM = 228 * 1024
 SMEM_BLOCK_RESERVED = 1024
 WARP = 32
+SCHEDULERS = 4
+SPLITS = (4, 2, 1)
+LONG_SCANS = 1024
 
 # launches of each kernel wrapper; a run sets them to 0 and reads them
 launch_counts = {"fused_rollout_cost": 0, "substep": 0}
@@ -88,8 +97,9 @@ launch_counts = {"fused_rollout_cost": 0, "substep": 0}
 # model's contact slots a thread keeps rows for (``slots``: those of the
 # leg levels, ``leg_slots``, and those of the base's groups,
 # ``base_slots``), its packed hull vertices (``verts``), the launch's
-# ``grid``, ``threads`` and ``smem_bytes`` a block, and what the runtime
-# says of the built kernel at that size (``registers`` a thread,
+# ``grid``, ``threads`` and ``smem_bytes`` a block, its ``split`` (the
+# replicas of a leg: how often the vertex scans were split), and what the
+# runtime says of the built kernel at that size (``registers`` a thread,
 # ``local_bytes`` a thread, ``blocks_per_sm``)
 geometry: dict = {}
 
@@ -364,18 +374,21 @@ def _model_sizes(m: PhysicsModel) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _runtime_info(source: str, dtype, threads: int, smem_bytes: int) -> dict:
-    return kernel_info(source, dtype, threads, smem_bytes)
+def _runtime_info(source: str, dtype, threads: int, smem_bytes: int,
+                  split: int) -> dict:
+    return kernel_info(source, dtype, threads, smem_bytes, split)
 
 
 def _record_geometry(kernel: str, source: str, m: PhysicsModel, dtype,
                      geo: "LaunchGeometry") -> None:
     """Set ``geometry[kernel]`` for a launch of ``source`` at ``geo``; the
-    runtime is asked once per (source, type, block, shared bytes)."""
-    info = _runtime_info(source, dtype, geo.threads, geo.smem_bytes)
+    runtime is asked once per (source, type, block, shared bytes, split)."""
+    info = _runtime_info(source, dtype, geo.threads, geo.smem_bytes,
+                         geo.split)
     geometry[kernel] = {
         **_model_sizes(m), "grid": geo.grid, "threads": geo.threads,
-        "smem_bytes": geo.smem_bytes, "registers": info["registers"],
+        "smem_bytes": geo.smem_bytes, "split": geo.split,
+        "registers": info["registers"],
         "local_bytes": info["local_bytes"],
         "blocks_per_sm": info["blocks_per_sm"]}
 
@@ -386,8 +399,9 @@ def _record_geometry(kernel: str, source: str, m: PhysicsModel, dtype,
 
 class LaunchGeometry(NamedTuple):
     grid: int        # blocks
-    threads: int     # threads per block, 4 per robot
+    threads: int     # threads per block, 4 x split per robot
     smem_bytes: int  # dynamic shared memory per block: the contact rows
+    split: int = 1   # replicas of a leg, which share its rows and scans
 
 
 def resident_blocks(threads: int, smem_bytes: int) -> int:
@@ -399,17 +413,62 @@ def resident_blocks(threads: int, smem_bytes: int) -> int:
     return min(by_smem, by_regs, 32)
 
 
-def launch_geometry(nslot: int, dtype: torch.dtype, n: int) -> LaunchGeometry:
-    """Block size, grid and dynamic shared bytes for ``n`` robots (rollouts
-    or lanes) of a model with ``nslot`` contact slots per leg.
+def _blocks(per_column: int, n: int, split: int) -> Optional[LaunchGeometry]:
+    """The block size for ``n`` robots of ``4 * split`` threads whose leg
+    columns take ``per_column`` bytes of rows each: of the block sizes
+    (multiples of a warp up to the kernels' launch bound) whose rows fit
+    the 227 KB a block may have, one whose grid covers every SM if there is
+    one, and among those the one that keeps most threads resident on an SM,
+    the smaller block on a tie; if none covers the card, the smallest.
+    None if not even one warp's rows fit."""
+    best, best_key = None, None
+    for threads in range(WARP, MAX_THREADS + 1, WARP):
+        smem = threads // split * per_column
+        if smem > SMEM_PER_BLOCK:
+            break
+        grid = -(-4 * split * n // threads)
+        resident = threads * resident_blocks(threads, smem)
+        covers = grid >= SM_COUNT
+        key = (covers, resident if covers else 0, -threads)
+        if best_key is None or key > best_key:
+            best = LaunchGeometry(grid, threads, smem, split)
+            best_key = key
+    return best
 
-    A robot takes 4 threads and a thread ``ROW_VALS * nslot`` values of
-    shared memory. Of the block sizes (multiples of a warp up to the
-    kernels' launch bound) whose rows fit the 227 KB a block may have,
-    take one whose grid covers every SM if there is one, and among those
-    the one that keeps most threads resident on an SM, the smaller block
-    on a tie; if none covers the card, the smallest. A small batch thus
-    gets small blocks and spreads over the SMs.
+
+def scheduler_warps(kernel: str, m: PhysicsModel) -> int:
+    """The warps a scheduler ``launch_geometry`` may fill with replicas
+    for ``kernel`` ("fused_rollout_cost" or "substep") on ``m``: 2 for the
+    substep kernel on a model with ``LONG_SCANS`` packed hull vertices or
+    more, else 1. Past one warp a scheduler the replicas' repeated work
+    competes for issue; only long scans repay it, and only in the substep
+    kernel. PERF.md has the card sweep: at 2,048 robots, split 4 against
+    2, the substep kernel ran 6-18 % faster on ``full`` (1,702 vertices)
+    and 12-30 % slower on the fast plant (140); the rollout kernel on
+    ``full`` up to 1.9x slower."""
+    if kernel == "substep" and _model_sizes(m)["verts"] >= LONG_SCANS:
+        return 2
+    return 1
+
+
+def launch_geometry(nslot: int, dtype: torch.dtype, n: int,
+                    per_scheduler: int = 1) -> LaunchGeometry:
+    """Split, block size, grid and dynamic shared bytes for ``n`` robots
+    (rollouts or lanes) of a model with ``nslot`` contact slots per leg.
+
+    A robot takes 4 x split threads, a leg's ``split`` replicas sharing
+    one column of ``ROW_VALS * nslot`` values of shared memory. Replicas
+    split only the hull-vertex scans and repeat the rest of the work, so
+    they pay where the grid leaves the SMs' schedulers idle. The split is
+    the largest of 4, 2 whose grid (``_blocks``) is one wave (every block
+    resident at once on the ``SM_COUNT`` SMs at that block and shared
+    size) of at most ``per_scheduler`` warps a scheduler (``SCHEDULERS``
+    an SM; ``scheduler_warps`` gives it for a kernel and model), else 1:
+    a batch that fills the schedulers at split 1 keeps one quad a robot.
+    PERF.md has the card sweep the limit comes from: beyond one warp a
+    scheduler the repeated work (the Newton solve above all) competes for
+    issue: at ~8 warps an SM B1 on the fast plant and on the planning
+    model at a 4/8 budget ran up to 2.4x slower.
     A model whose rows do not fit even one warp is refused."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the kernels take float32/float64, got {dtype}")
@@ -418,23 +477,20 @@ def launch_geometry(nslot: int, dtype: torch.dtype, n: int) -> LaunchGeometry:
     if not 0 <= nslot <= MAX_SLOTS:
         raise LE.IncompatibleModelError(
             f"{nslot} contact slots per leg; the kernels take {MAX_SLOTS}")
-    per_thread = ROW_VALS * nslot * torch.empty((), dtype=dtype).element_size()
-    best, best_key = None, None
-    for threads in range(WARP, MAX_THREADS + 1, WARP):
-        smem = threads * per_thread
-        if smem > SMEM_PER_BLOCK:
-            break
-        grid = -(-4 * n // threads)
-        resident = threads * resident_blocks(threads, smem)
-        covers = grid >= SM_COUNT
-        key = (covers, resident if covers else 0, -threads)
-        if best_key is None or key > best_key:
-            best, best_key = LaunchGeometry(grid, threads, smem), key
-    if best is None:
+    per_column = ROW_VALS * nslot * torch.empty((), dtype=dtype).element_size()
+    most = WARP * SCHEDULERS * SM_COUNT * per_scheduler
+    for split in SPLITS[:-1]:
+        geo = _blocks(per_column, n, split)
+        if geo is not None and geo.grid * geo.threads <= most and (
+                geo.grid <= SM_COUNT * resident_blocks(geo.threads,
+                                                       geo.smem_bytes)):
+            return geo
+    geo = _blocks(per_column, n, 1)
+    if geo is None:
         raise LE.IncompatibleModelError(
-            f"the contact rows of {nslot} slots take {WARP * per_thread} "
+            f"the contact rows of {nslot} slots take {WARP * per_column} "
             f"bytes for one warp; a block has {SMEM_PER_BLOCK}")
-    return best
+    return geo
 
 
 def _check_launch(err: int, what: str, geo: LaunchGeometry) -> None:
@@ -442,24 +498,24 @@ def _check_launch(err: int, what: str, geo: LaunchGeometry) -> None:
         raise RuntimeError(
             f"{what} launch failed: CUDA error {err} (grid {geo.grid}, "
             f"{geo.threads} threads, {geo.smem_bytes} bytes of dynamic "
-            "shared memory a block)")
+            f"shared memory a block, split {geo.split})")
 
 
 def kernel_info(source: str, dtype: torch.dtype, threads: int,
-                smem_bytes: int) -> dict:
-    """What the CUDA runtime reports for the built kernel of ``source`` at
-    a block size and dynamic shared size: registers per thread, local
-    (stack and spill) bytes per thread, resident blocks per SM. Needs a
-    card."""
+                smem_bytes: int, split: int = 1) -> dict:
+    """What the CUDA runtime reports for the built kernel of ``source``
+    for ``split`` replicas at a block size and dynamic shared size:
+    registers per thread, local (stack and spill) bytes per thread,
+    resident blocks per SM. Needs a card."""
     lib = _library(source, dtype)
     regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.qg_kernel_info(threads, smem_bytes, ctypes.byref(regs),
+    err = lib.qg_kernel_info(threads, smem_bytes, split, ctypes.byref(regs),
                              ctypes.byref(local), ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"kernel_info({source}): CUDA error {err}")
     return {"registers": regs.value, "local_bytes": local.value,
             "blocks_per_sm": blocks.value, "threads": threads,
-            "smem_bytes": smem_bytes}
+            "smem_bytes": smem_bytes, "split": split}
 
 
 # --------------------------------------------------------------------------
@@ -521,16 +577,16 @@ def _library(source: str, dtype: torch.dtype) -> ctypes.CDLL:
         lib.qg_model_size.argtypes = []
         lib.qg_kernel_info.restype = ctypes.c_int
         lib.qg_kernel_info.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
         if source == KERNEL_SOURCE:
             lib.qg_fused_rollout.restype = ctypes.c_int
             lib.qg_fused_rollout.argtypes = (
                 [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                + [ctypes.c_double] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                + [ctypes.c_double] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         else:
             lib.qg_substeps.restype = ctypes.c_int
             lib.qg_substeps.argtypes = (
-                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
                 + [ctypes.c_void_p])
         size = lib.qg_model_size()
         if size != ctypes.sizeof(model_struct(dtype)):
@@ -566,13 +622,14 @@ def fused_rollout_cost(
     m: PhysicsModel, state0, ctrl_seqs: torch.Tensor, cmd,
     prev_ctrl0: torch.Tensor, frame_skip: int, solver_iterations: int = 4,
     ls_iterations: int = 8, height: float = 0.13,
-    dp: Optional[DomainParams] = None,
+    dp: Optional[DomainParams] = None, _geometry=None,
 ) -> torch.Tensor:
     """(S,) total walking-stage costs of H-step rollouts from ``state0``
     under ``ctrl_seqs`` (S, H, nu), one kernel launch. ``dp`` is an
     optional ``DomainParams`` of (S,) lanes. CPU tensors go to the plain
     version; CUDA tensors to the kernel, which raises rather than fall
-    back."""
+    back. ``_geometry`` overrides ``launch_geometry``'s choice (a check
+    of the kernel at another split uses it)."""
     with profiling.span("cuda_engine.fused_rollout_cost"):
         if ctrl_seqs.device.type == "cpu":
             return fused_rollout_cost_reference(
@@ -603,7 +660,7 @@ def fused_rollout_cost(
         cmd_scal = command_scalars(cmd, dt).to(dev).contiguous()
         lanes = _dp_lanes(dp, S, dt, dev)
         model = _model_buffer(m, dt, dev)
-        geo = launch_geometry(model_slots(m), dt, S)
+        geo = _geometry or launch_geometry(model_slots(m), dt, S)
         lib = _library(KERNEL_SOURCE, dt)
         out = torch.empty(S, dtype=dt, device=dev)
         args = (model.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
@@ -652,7 +709,8 @@ def control_step_reference(m: PhysicsModel, ls: LaneState,
 def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
                      compute_sensors, geometry=None) -> LaneState:
     """Check, allocate and launch. ``geometry`` overrides
-    ``launch_geometry``'s choice (a check of a refused launch uses it)."""
+    ``launch_geometry``'s choice (the checks of a refused launch and of
+    another split use it)."""
     dev, dt = ls.qpos.device, ls.qpos.dtype
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -678,7 +736,8 @@ def _launch_substeps(m, ls, ctrl, nsub, solver_iterations, ls_iterations, dp,
         raise ValueError(f"time must have shape ({B},)")
     lanes = _dp_lanes(dp, B, dt, dev)
     model = _model_buffer(m, dt, dev)
-    geo = geometry or launch_geometry(model_slots(m), dt, B)
+    geo = geometry or launch_geometry(model_slots(m), dt, B,
+                                      scheduler_warps("substep", m))
     lib = _library(SUBSTEP_SOURCE, dt)
     qpos_o, qvel_o, act_o = (torch.empty_like(x) for x in (qpos, qvel, act))
     sens_o = torch.empty((m.nsensordata, B), dtype=dt, device=dev)

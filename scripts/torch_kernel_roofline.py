@@ -184,7 +184,8 @@ def main(argv=None) -> dict:
         geo = cuda_engine.launch_geometry(cuda_engine.model_slots(m), dt,
                                           S_ref)
         kernel = cuda_engine.kernel_info(cuda_engine.KERNEL_SOURCE, dt,
-                                         geo.threads, geo.smem_bytes)
+                                         geo.threads, geo.smem_bytes,
+                                         geo.split)
         kernel.update(grid=geo.grid, ptxas=_build.ptxas_report(
             cuda_engine.KERNEL_SOURCE, "float32"))
 

@@ -209,10 +209,11 @@ def host_lib(tmp_path_factory):
 
 
 def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None,
-                  quad=False):
+                  quad=False, split=1):
     """The kernels' rollout body built for the host: one thread a robot,
-    or with ``quad`` the one-leg form the card runs (four threads a
-    robot), whose four copies of each cost must agree in every bit."""
+    or with ``quad`` the one-leg form the card runs (4 x ``split`` threads
+    a robot: ``split`` replicas of a quad), whose copies of each cost must
+    agree in every bit."""
     dt = seqs.dtype
     P = cuda_engine.pack_model(m, dt)
     S = seqs.shape[0]
@@ -230,9 +231,10 @@ def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None,
     differ = getattr(lib, name)(
         ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
         vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
-        ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13)
+        ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13,
+        *((split,) if quad else ()))
     if quad:
-        assert differ == 0, f"{differ} costs differ within their quad"
+        assert differ == 0, f"{differ} costs differ within their robot"
     return out
 
 
@@ -346,6 +348,38 @@ def test_host_quad_rollout_matches_whole_robot_form(host_lib, name, kind, H,
                                                    4, 8, dp=dp)
     tol = 1e-8 if dtype == torch.float64 else 1e-4
     np.testing.assert_allclose(quad.numpy(), ref.numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name,kind,H,fs,with_dp,dtype,split", [
+    ("planning", "grounded", 2, 3, False, torch.float64, 2),
+    ("planning", "airborne", 1, 2, True, torch.float64, 4),
+    ("planning", "grounded", 1, 3, False, torch.float32, 4),
+    ("fast_plant", "grounded", 1, 2, True, torch.float64, 4),
+    ("fast_plant", "grounded", 1, 2, False, torch.float32, 2),
+    ("fast_plant_nsec_none", "grounded", 1, 2, False, torch.float64, 2),
+])
+def test_host_split_rollout_matches_whole_robot_form(host_lib, name, kind, H,
+                                                     fs, with_dp, dtype,
+                                                     split):
+    """Replicas (``split`` quads a rollout, each scanning a share of every
+    hull and sharing the winners by exchange steps over the replica bits,
+    ties to the lower index): every thread's cost equals the whole-robot
+    form's in every bit, so B1's costs do not depend on the split."""
+    m = _model(name)
+    S = 2
+    st, seqs, cmd, prev = _inputs(m, kind, S, H, seed=5 * H + fs + split,
+                                  dtype=dtype)
+    dp = None
+    if with_dp:
+        dp = spec.sample_domain_params(
+            torch.Generator().manual_seed(3), S, friction_range=(0.4, 0.8),
+            gain_range=(0.8, 1.2), mass_range=(0.9, 1.5),
+            tilt_range=(-0.1, 0.1), terrain_amp_range=(0.0, 0.02),
+            dtype=dtype)
+    whole = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
+    reps = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp,
+                         quad=True, split=split)
+    np.testing.assert_array_equal(reps.numpy(), whole.numpy())
 
 
 # --------------------------------------------------------------------------

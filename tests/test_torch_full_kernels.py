@@ -7,9 +7,10 @@ with its own frame) and the frame (one geom: the four threads of a robot
 scan a quarter of its hull each and share the winners, leg 0 keeps its
 slots). The host build runs the substep kernel's and the rollout
 kernel's bodies one thread a robot and in the card's form, a quad of
-threads a robot; the two must agree in every bit and both stay within
-1e-8 (float64) or 1e-4 (float32) of the plain version, from states where
-the hip servos and the frame touch the ground."""
+threads a robot, or 2 or 4 replicas of the quad that split every
+hull's scans; all must agree in every bit and stay within 1e-8 (float64)
+or 1e-4 (float32) of the plain version, from states where the hip servos
+and the frame touch the ground."""
 
 import ctypes
 
@@ -66,20 +67,26 @@ def _ptrs(dp, dt):
                                          for v in lanes])
 
 
-def _host_substeps(lib, ls, ctrl, nsub, dp, quad):
+def _host_substeps(lib, ls, ctrl, nsub, dp, quad, split=1):
+    """One thread a robot, or with ``quad`` 4 x ``split`` threads: then
+    each replica's outputs along a leading axis."""
     dt = ls.qpos.dtype
     P = cuda_engine.pack_model(M, dt)
     n = ls.qpos.shape[1]
     keep, ptrs = _ptrs(dp, dt)
     ins = [x.contiguous() for x in (ls.qpos, ls.qvel, ls.act, ctrl)]
-    outs = [torch.full_like(x, float("nan")) for x in ins[:3]]
-    sens = torch.full((M.nsensordata, n), float("nan"), dtype=dt)
+    lead = (split,) if quad else ()
+    outs = [torch.full(lead + x.shape, float("nan"), dtype=dt)
+            for x in ins[:3]]
+    sens = torch.full(lead + (M.nsensordata, n), float("nan"), dtype=dt)
     name = "qg_host_{}substeps_{}".format(
         "quad_" if quad else "", "f64" if dt == F64 else "f32")
     sizes = (n, n) if quad else (n,)
-    getattr(lib, name)(ctypes.addressof(P), *[x.data_ptr() for x in ins],
-                       ptrs, *[x.data_ptr() for x in outs], sens.data_ptr(),
-                       *sizes, nsub, 4, 8, 1)
+    err = getattr(lib, name)(
+        ctypes.addressof(P), *[x.data_ptr() for x in ins], ptrs,
+        *[x.data_ptr() for x in outs], sens.data_ptr(), *sizes, nsub, 4, 8, 1,
+        *((split,) if quad else ()))
+    assert not quad or err == 0
     return outs + [sens]
 
 
@@ -106,7 +113,7 @@ def test_host_substeps_match_plain_version(host_lib, nsub, with_dp):
     for w, q, f in zip(whole, quad, ("qpos", "qvel", "act", "sensordata")):
         np.testing.assert_allclose(w.numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-8, atol=1e-8, err_msg=f)
-        np.testing.assert_array_equal(q.numpy(), w.numpy())
+        np.testing.assert_array_equal(q[0].numpy(), w.numpy())
 
 
 def test_host_substeps_float32(host_lib):
@@ -119,7 +126,36 @@ def test_host_substeps_float32(host_lib):
     for w, q, f in zip(whole, quad, ("qpos", "qvel", "act", "sensordata")):
         np.testing.assert_allclose(w.numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=f)
-        np.testing.assert_array_equal(q.numpy(), w.numpy())
+        np.testing.assert_array_equal(q[0].numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("split,nsub,dtype,with_dp", [
+    (2, 2, F64, True), (4, 1, F64, False), (4, 2, F64, False),
+    (2, 1, F32, False), (4, 3, F32, True), (2, 3, F32, False)])
+def test_host_split_substeps_match_whole_robot_form(host_lib, split, nsub,
+                                                    dtype, with_dp):
+    """B2 with replicas from the pressed start (the frame and the hip
+    servos in contact): each replica scans its share of every hull (of
+    its leg's quarter of the frame's) and the winners are shared, so
+    every replica's state and sensors equal the whole-robot form's in
+    every bit, at every split. Two lanes (the frame and the hip servos
+    touch at 0, the hip servos at 3 cm): 4 x split host threads step
+    each in lockstep, so the lanes are few."""
+    ls, ctrl, dp = _lanes(dtype, 40 + split + nsub, with_dp)
+    pick = [HEIGHTS.index(0.0), HEIGHTS.index(0.03)]
+    ls = LaneState(*(x[..., pick] for x in ls))
+    ctrl = ctrl[:, pick]
+    if dp is not None:
+        dp = type(dp)(*(None if v is None else v[pick] for v in dp))
+    servos, frame = _active(ls)
+    assert servos > 0 and frame > 0
+    whole = _host_substeps(host_lib, ls, ctrl, nsub, dp, quad=False)
+    reps = _host_substeps(host_lib, ls, ctrl, nsub, dp, quad=True,
+                          split=split)
+    for w, r, f in zip(whole, reps, ("qpos", "qvel", "act", "sensordata")):
+        assert r.shape[0] == split
+        for q in r:
+            np.testing.assert_array_equal(q.numpy(), w.numpy(), err_msg=f)
 
 
 def _rollout_inputs(dtype, z, S, H, seed):
@@ -134,7 +170,7 @@ def _rollout_inputs(dtype, z, S, H, seed):
     return st, seqs, make(t([0.2, 0.1]), t(0.3)), t(HOLD)
 
 
-def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, quad):
+def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, quad, split=1):
     dt = seqs.dtype
     P = cuda_engine.pack_model(M, dt)
     S = seqs.shape[0]
@@ -148,9 +184,10 @@ def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, quad):
     differ = getattr(lib, name)(
         ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
         vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
-        ptrs, out.data_ptr(), S, seqs.shape[1], fs, 4, 8, 0.13)
+        ptrs, out.data_ptr(), S, seqs.shape[1], fs, 4, 8, 0.13,
+        *((split,) if quad else ()))
     if quad:
-        assert differ == 0, f"{differ} costs differ within their quad"
+        assert differ == 0, f"{differ} costs differ within their robot"
     return out
 
 
@@ -178,6 +215,22 @@ def test_host_rollout_matches_plain_version(host_lib, z, dtype, with_dp):
     np.testing.assert_allclose(whole.numpy(), ref.numpy(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("z,dtype,split", [(0.0, F64, 2), (0.0, F64, 4),
+                                           (0.03, F64, 4), (0.0, F32, 4),
+                                           (0.03, F32, 2)])
+def test_host_split_rollout_matches_whole_robot_form(host_lib, z, dtype,
+                                                     split):
+    """B1 with replicas on ``full``, the base pressed to ``z``: every
+    thread's cost equals the whole-robot form's in every bit."""
+    S = 2
+    st, seqs, cmd, prev = _rollout_inputs(dtype, z, S, 1,
+                                          seed=7 + split + int(100 * z))
+    whole = _host_rollout(host_lib, st, seqs, cmd, prev, 3, None, quad=False)
+    reps = _host_rollout(host_lib, st, seqs, cmd, prev, 3, None, quad=True,
+                         split=split)
+    np.testing.assert_array_equal(reps.numpy(), whole.numpy())
+
+
 def test_pack_model_base_groups():
     """The base's groups in the packed model: levels, each hip servo's
     own frame at its leg, the frame's hull once, the base's invweight."""
@@ -200,14 +253,32 @@ def test_pack_model_base_groups():
 
 
 def test_launch_geometry_of_full():
-    """15 slots a thread (13 a leg with its hip servo, the frame's 2 in
-    every thread's rows): 76,800 B of rows for a warp in float32, 3
-    blocks an SM; 2,048 envs are 256 blocks, one wave on 132 SMs. The
-    float64 rows, 153,600 B, fit the 227 KB a block may have."""
+    """15 slots a leg column (13 a leg with its hip servo, the frame's 2
+    in every column): 76,800 B of rows for a warp of single quads in
+    float32, 3 blocks an SM. B1 at 2,048 rollouts takes 2 replicas a leg:
+    blocks of two warps (32 columns, 76,800 B), 3 an SM, 256 blocks in one
+    wave of 512 warps, one a scheduler of the 132 SMs. B2, whose
+    replicas may fill two warps a scheduler on ``full``'s long scans,
+    takes 4 at 2,048 envs: single warps of 8 columns (19,200 B), 8 an SM
+    by the launch bounds, 1,024 blocks in one wave. The float64 rows of a
+    warp of quads, 153,600 B, fit the 227 KB a block may have: 1 an SM,
+    too few for replicas at 2,048 envs."""
     geo = cuda_engine.launch_geometry(15, F32, 2048)
-    assert geo == (256, 32, 76800)
+    assert geo == (256, 64, 76800, 2)
+    assert cuda_engine.resident_blocks(64, 76800) == 3
     assert cuda_engine.resident_blocks(32, 76800) == 3
     assert geo.grid <= cuda_engine.SM_COUNT * 3
+    assert geo.grid * 2 <= cuda_engine.SCHEDULERS * cuda_engine.SM_COUNT
+    assert cuda_engine.scheduler_warps("substep", M) == 2
+    assert cuda_engine.scheduler_warps("fused_rollout_cost", M) == 1
+    env = cuda_engine.launch_geometry(15, F32, 2048, 2)
+    assert env == (1024, 32, 19200, 4)
+    assert cuda_engine.resident_blocks(32, 19200) == 8
+    assert env.grid <= cuda_engine.SM_COUNT * 8
+    assert env.grid <= 2 * cuda_engine.SCHEDULERS * cuda_engine.SM_COUNT
+    assert cuda_engine.launch_geometry(15, F64, 2048, 2).split == 1
     f64 = cuda_engine.launch_geometry(15, F64, 2048)
-    assert f64.smem_bytes == 153600 <= cuda_engine.SMEM_PER_BLOCK
-    assert cuda_engine.launch_geometry(15, F32, 65536).smem_bytes == 76800
+    assert f64 == (256, 32, 153600, 1)
+    assert f64.smem_bytes <= cuda_engine.SMEM_PER_BLOCK
+    assert cuda_engine.launch_geometry(15, F32, 65536) == (8192, 32, 76800,
+                                                           1)

@@ -227,10 +227,12 @@ def host_lib(tmp_path_factory):
 
 
 def _host_substeps(lib, m, ls, ctrl, nsub, it, lsi, dp=None,
-                   compute_sensors=True, quad=False, n_store=None):
+                   compute_sensors=True, quad=False, n_store=None, split=1):
     """The substep kernel's body built for the host: one thread a robot,
-    or with ``quad`` the one-leg form the card runs (four threads a
-    robot), where lanes from ``n_store`` on run but store nothing."""
+    or with ``quad`` the one-leg form the card runs (4 x ``split`` threads
+    a robot: ``split`` replicas of a quad, each replica's outputs along a
+    leading axis), where lanes from ``n_store`` on run but store
+    nothing."""
     dt = ls.qpos.dtype
     P = cuda_engine.pack_model(m, dt)
     n = ls.qpos.shape[1]
@@ -240,15 +242,18 @@ def _host_substeps(lib, m, ls, ctrl, nsub, it, lsi, dp=None,
     ptrs = (ctypes.c_void_p * 7)(*[0 if v is None else v.data_ptr()
                                    for v in lanes])
     ins = [x.contiguous() for x in (ls.qpos, ls.qvel, ls.act, ctrl.to(dt))]
-    outs = [torch.full_like(x, float("nan")) for x in ins[:3]]
-    sens = torch.full((m.nsensordata, n), float("nan"), dtype=dt)
+    lead = (split,) if quad else ()
+    outs = [torch.full(lead + x.shape, float("nan"), dtype=dt)
+            for x in ins[:3]]
+    sens = torch.full(lead + (m.nsensordata, n), float("nan"), dtype=dt)
     name = "qg_host_{}substeps_{}".format(
         "quad_" if quad else "", "f64" if dt == torch.float64 else "f32")
     sizes = (n, n if n_store is None else n_store) if quad else (n,)
-    getattr(lib, name)(
+    err = getattr(lib, name)(
         ctypes.addressof(P), *[x.data_ptr() for x in ins], ptrs,
         *[x.data_ptr() for x in outs], sens.data_ptr(), *sizes, nsub, it, lsi,
-        int(compute_sensors))
+        int(compute_sensors), *((split,) if quad else ()))
+    assert not quad or err == 0
     return outs[0], outs[1], outs[2], sens
 
 
@@ -334,11 +339,44 @@ def test_host_quad_substeps_match_whole_robot_form(host_lib, name, kind, nsub,
     n, keep = 6, 4
     tm, ls, ctrl, dp = _lane_inputs(name, kind, 23 + nsub, dtype, n, with_dp)
     whole = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors)
-    quad = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors,
-                          quad=True, n_store=keep)
+    quad = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8,
+                                         dp, sensors, quad=True,
+                                         n_store=keep)]
     for w, q in zip(whole, quad):
         np.testing.assert_array_equal(q[:, :keep].numpy(),
                                       w[:, :keep].numpy())
         assert bool(torch.isnan(q[:, keep:]).all())
     if not sensors:
         assert float(quad[3][:, :keep].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name,kind,nsub,with_dp,sensors,dtype,split", [
+    ("planning", "grounded", 2, True, True, torch.float64, 2),
+    ("planning", "grounded", 1, False, False, torch.float64, 4),
+    ("planning", "grounded", 2, False, True, torch.float32, 4),
+    ("fast_plant", "low", 2, False, True, torch.float64, 4),
+    ("fast_plant", "low", 1, True, True, torch.float64, 2),
+    ("fast_plant", "low", 2, True, True, torch.float32, 2),
+    ("fast_plant", "grounded", 2, False, True, torch.float32, 4),
+])
+def test_host_split_substeps_match_whole_robot_form(host_lib, name, kind,
+                                                    nsub, with_dp, sensors,
+                                                    dtype, split):
+    """Replicas (``split`` quads a lane, each scanning a share of every
+    hull and sharing the winners, every replica writing the same rows into
+    its leg's one column): every replica's state and sensors equal the
+    whole-robot form in every bit, so the card's outputs do not depend on
+    the split (the test above holds split 1 to the same form). The last
+    lanes run but store nothing."""
+    n, keep = 3, 2
+    tm, ls, ctrl, dp = _lane_inputs(name, kind, 31 + split + nsub, dtype, n,
+                                    with_dp)
+    whole = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors)
+    reps = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors,
+                          quad=True, n_store=keep, split=split)
+    for w, r in zip(whole, reps):
+        assert r.shape[0] == split
+        for q in r:
+            np.testing.assert_array_equal(q[:, :keep].numpy(),
+                                          w[:, :keep].numpy())
+            assert bool(torch.isnan(q[:, keep:]).all())

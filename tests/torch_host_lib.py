@@ -19,7 +19,7 @@ def build(tmp_dir) -> ctypes.CDLL:
     if cxx is None:
         pytest.skip("g++ is needed to build the kernel source for the host")
     out = os.path.join(str(tmp_dir), "host_rollout.so")
-    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
+    subprocess.run([cxx, "-O2", "-std=c++20", "-shared", "-fPIC", "-pthread",
                     f"-I{_build.CSRC}", "-o", out,
                     os.path.join(HERE, "torch_host_rollout.cpp")],
                    check=True, capture_output=True, timeout=300)
@@ -30,12 +30,15 @@ def build(tmp_dir) -> ctypes.CDLL:
         getattr(lib, f"qg_host_substeps_{dt}").argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5)
         getattr(lib, f"qg_model_size_{dt}").restype = ctypes.c_int
-        # the one-leg form the card runs, a quad of host threads per robot
+        # the one-leg form the card runs, 4 x split host threads per
+        # robot (split replicas of a quad); the last argument is split
         quad = getattr(lib, f"qg_host_quad_rollout_{dt}")
-        quad.argtypes = getattr(lib, f"qg_host_rollout_{dt}").argtypes
+        quad.argtypes = getattr(lib, f"qg_host_rollout_{dt}").argtypes + [
+            ctypes.c_int]
         quad.restype = ctypes.c_int
-        getattr(lib, f"qg_host_quad_substeps_{dt}").argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6)
+        quad = getattr(lib, f"qg_host_quad_substeps_{dt}")
+        quad.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        quad.restype = ctypes.c_int
     lib.qg_row_vals.restype = ctypes.c_int
     lib.qg_host_substep_f64.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
