@@ -1,11 +1,13 @@
 // Small-vector algebra in one thread's registers: vec3, quat, row-major
-// mat3 and spatial 6-vectors [angular; linear], and the sum over a
-// robot's four legs. The operation order follows ops/lane.py so the
+// mat3 and spatial 6-vectors [angular; linear], and the exchanges between
+// the threads of a robot. The operation order follows ops/lane.py so the
 // float64 kernel tracks the plain version to rounding.
 #pragma once
 
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace qg {
 
@@ -19,8 +21,9 @@ namespace qg {
 // value over the quad by two butterfly steps; every lane gets
 // (a0 + a1) + (a2 + a3) bit for bit, because IEEE addition commutes. All
 // 32 lanes of the warp must call it together: the kernels keep every
-// thread alive and mask only the stores. A host build (QG_HOST) supplies
-// its own quad_sum, lane_best and replica_fence before this header.
+// thread alive and mask only the stores. The host build of the tests
+// (QG_HOST) supplies its own quad_sum, lane_best and replica_fence before
+// this header, over host threads in lockstep.
 #ifndef QG_HOST
 template <typename T> QG_DEV T quad_sum(T v) {
   v = v + __shfl_xor_sync(0xffffffffu, v, 1);
@@ -38,8 +41,9 @@ template <typename T> QG_DEV bool beats(T ov, int oi, T v, int i, bool lower) {
 
 // The best (value, index) over the lanes lane ^ m, m = FIRST, 2 FIRST, ..
 // below LANES, by butterfly steps: every such lane gets the same pair.
-// FIRST = 1, LANES = 4 is the quad; FIRST = 4 the replicas of one leg. The
-// second form carries ``h`` with the winner. A host build supplies both.
+// FIRST = 1, LANES = 4 SPLIT is the quad and its replicas; FIRST = 4 the
+// replicas of one leg. The second form carries ``h`` with the winner. The
+// host build supplies both.
 #ifndef QG_HOST
 template <int FIRST, int LANES, typename T> QG_DEV void lane_best(T& v, int& i, bool lower) {
 #pragma unroll
@@ -69,6 +73,17 @@ QG_DEV void replica_fence() { __syncwarp(); }
 // log2 of a split of 1, 2 or 4 replicas
 template <int SPLIT> constexpr int split_log = SPLIT == 4 ? 2 : SPLIT == 2 ? 1 : 0;
 
+// f(std::integral_constant<int, SPLIT>()) for a split of 1, 2 or 4;
+// ``bad`` for any other
+template <typename F> int with_split(int split, int bad, F&& f) {
+  switch (split) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return bad;
+  }
+}
+
 #ifndef QG_HOST
 // Where a thread of a kernel instantiated for SPLIT replicas sits: its
 // robot over the grid, its leg, its replica, and the column of the
@@ -91,33 +106,6 @@ template <int SPLIT> struct LaneIndex {
   QG_DEV static size_t stride() { return blockDim.x >> LOG; }
 };
 #endif
-
-// Sum of term(j) over the four legs of a robot, for a thread that owns NL
-// of them: all four (one thread per robot: the host build) or one (a quad
-// per robot: the card). Both forms add in the order (0 + 1) + (2 + 3).
-template <int NL, typename T, typename F> QG_DEV T leg_sum(F&& term) {
-  static_assert(NL == 4 || NL == 1, "a thread owns four legs or one");
-  if constexpr (NL == 4) {
-    return (term(0) + term(1)) + (term(2) + term(3));
-  } else {
-    return quad_sum<T>(term(0));
-  }
-}
-
-// The best (value, index) pair over the four legs' pairs (see beats), for
-// a thread that owns NL of them; every owned leg gets it. With SPLIT
-// replicas (NL = 1) the pairs of all 4 x SPLIT lanes of the robot.
-template <int NL, int SPLIT, typename T> QG_DEV void leg_best(T v[NL], int i[NL], bool lower) {
-  static_assert(NL == 4 || NL == 1, "a thread owns four legs or one");
-  static_assert(NL == 1 || SPLIT == 1, "replicas take one leg a thread");
-  if constexpr (NL == 4) {
-    for (int l = 1; l < 4; ++l)
-      if (beats(v[l], i[l], v[0], i[0], lower)) { v[0] = v[l]; i[0] = i[l]; }
-    for (int l = 1; l < 4; ++l) { v[l] = v[0]; i[l] = i[0]; }
-  } else {
-    lane_best<1, 4 * SPLIT>(v[0], i[0], lower);
-  }
-}
 
 template <typename T> QG_DEV T dot3(const T a[3], const T b[3]) {
   return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];

@@ -10,8 +10,6 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 namespace qg {
 
 // __launch_bounds__ of both kernels: the largest block the wrapper may ask
@@ -36,17 +34,6 @@ template <typename K> int allow_shared(K kernel, int smem_bytes) {
 // What the runtime says of a kernel at a block size and shared size:
 // registers per thread, local (stack + spill) bytes per thread, and the
 // blocks of it that fit an SM together.
-// f(std::integral_constant<int, SPLIT>()) for a split of 1, 2 or 4;
-// cudaErrorInvalidValue for any other
-template <typename F> int with_split(int split, F&& f) {
-  switch (split) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 2: return f(std::integral_constant<int, 2>());
-    case 4: return f(std::integral_constant<int, 4>());
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 template <typename K>
 int kernel_info(K kernel, int threads, int smem_bytes, int* registers, int* local_bytes,
                 int* blocks_per_sm) {

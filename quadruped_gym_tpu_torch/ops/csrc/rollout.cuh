@@ -1,20 +1,20 @@
 // One rollout: H control steps x frame_skip substeps plus the walking
-// stage cost (pallas_engine.py::_lane_stage_cost), for rollout ``s``, in a
-// thread that owns NL of the robot's legs (leg_step.cuh), replica ``rep``
-// of them (lane_math.cuh). Shared by the CUDA kernel (NL = 1) and a host
-// build of the same source.
+// stage cost (pallas_engine.py::_lane_stage_cost), for rollout ``s``, in
+// the thread of leg ``leg`` (leg_step.cuh), replica ``rep`` of it
+// (lane_math.cuh). Shared by the CUDA kernel and the host build of the
+// tests.
 #pragma once
 
 #include "leg_step.cuh"
 
 namespace qg {
 
-// ``ctrl`` and ``prev`` are the owned legs' controls by level. Each leg
-// sums its three posture and control-change terms and the legs are then
-// added, where the plain version sums the 12 actuators in one pass: the
-// two sums differ from it by rounding only.
-template <int NL, typename T>
-QG_DEV T stage_cost(const CostSensors<T>& s, int leg0, const T ctrl[3][NL], const T prev[3][NL],
+// ``ctrl`` and ``prev`` are the leg's controls by level. Each leg sums
+// its three posture and control-change terms and the legs are then added,
+// where the plain version sums the 12 actuators in one pass: the two sums
+// differ from it by rounding only.
+template <typename T>
+QG_DEV T stage_cost(const CostSensors<T>& s, int leg, const T ctrl[3], const T prev[3],
                     const T* cmd, T height, const T centers[12]) {
   const T vx = s.vel[0], vy = s.vel[1];
   const T n2 = vx * vx + vy * vy;
@@ -26,21 +26,16 @@ QG_DEV T stage_cost(const CostSensors<T>& s, int leg0, const T ctrl[3][NL], cons
   const T heading = s.xaxis[0] * cmd[3] + s.xaxis[1] * cmd[4];
   const T orient = s.zaxis_z;
   const T height_cost = fabs(s.pos_z - height);
-  T post_l[NL], dctrl_l[NL];
+  T post_l = T(0), dctrl_l = T(0);
 #pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    post_l[l] = T(0);
-    dctrl_l[l] = T(0);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const T d = (ctrl[k][l] - centers[3 * (leg0 + l) + k]) / T(12);
-      post_l[l] = post_l[l] + d * d;
-      const T e = ctrl[k][l] - prev[k][l];
-      dctrl_l[l] = dctrl_l[l] + e * e;
-    }
+  for (int k = 0; k < 3; ++k) {
+    const T d = (ctrl[k] - centers[3 * leg + k]) / T(12);
+    post_l = post_l + d * d;
+    const T e = ctrl[k] - prev[k];
+    dctrl_l = dctrl_l + e * e;
   }
-  const T posture2 = leg_sum<NL, T>([&](int l) { return post_l[l]; });
-  const T dctrl = leg_sum<NL, T>([&](int l) { return dctrl_l[l]; });
+  const T posture2 = quad_sum(post_l);
+  const T dctrl = quad_sum(dctrl_l);
   const T reward = ((((((((T(10) + T(10) * prog_dir) - T(50) * speed_cost)
                          + T(10) * (exp(heading) - T(1)))
                         + T(10) * (exp(orient) - T(1)))
@@ -52,56 +47,47 @@ QG_DEV T stage_cost(const CostSensors<T>& s, int leg0, const T ctrl[3][NL], cons
 }
 
 // The shared start state, this thread's share of it
-template <int NL, typename T>
-QG_DEV void load_shared_state(const T* qpos0, const T* qvel0, const T* act0, int leg0,
-                              LegState<NL, T>& st) {
+template <typename T>
+QG_DEV void load_shared_state(const T* qpos0, const T* qvel0, const T* act0, int leg,
+                              LegState<T>& st) {
   for (int i = 0; i < 7; ++i) st.qb[i] = qpos0[i];
   for (int i = 0; i < 6; ++i) st.vf[i] = qvel0[i];
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      const int u = 3 * (leg0 + l) + k;
-      st.q[k][l] = qpos0[7 + u];
-      st.qv[k][l] = qvel0[6 + u];
-      st.act[k][l] = act0[u];
-    }
+  for (int k = 0; k < 3; ++k) {
+    const int u = 3 * leg + k;
+    st.q[k] = qpos0[7 + u];
+    st.qv[k] = qvel0[6 + u];
+    st.act[k] = act0[u];
+  }
 }
 
 // Total cost of rollout s; every thread of the robot returns the same bits.
-template <int NL, typename T, int SPLIT>
+template <typename T, int SPLIT>
 QG_DEV T rollout_cost(const LegModel<T>& M, const T* qpos0, const T* qvel0, const T* act0,
                       const T* seqs, const T* prev0, const T* cmd, const DomainLanes<T>& lanes,
-                      int leg0, int rep, int s, int S, int H, int frame_skip, int iterations,
-                      int ls_iterations, T height, RowStore<NL, T, SPLIT> rows) {
+                      int leg, int rep, int s, int S, int H, int frame_skip, int iterations,
+                      int ls_iterations, T height, RowStore<T, SPLIT> rows) {
   const Domain<T> dp = load_domain(lanes, (size_t)s);
-  LegState<NL, T> st;
-  load_shared_state(qpos0, qvel0, act0, leg0, st);
-  T prev[3][NL], ctrl[3][NL];
+  LegState<T> st;
+  load_shared_state(qpos0, qvel0, act0, leg, st);
+  T prev[3], ctrl[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int l = 0; l < NL; ++l) prev[k][l] = prev0[3 * (leg0 + l) + k];
+  for (int k = 0; k < 3; ++k) prev[k] = prev0[3 * leg + k];
 
   T cost = T(0);
   for (int t = 0; t < H; ++t) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-#pragma unroll
-      for (int l = 0; l < NL; ++l)
-        ctrl[k][l] = seqs[((size_t)t * 12 + 3 * (leg0 + l) + k) * S + s];
+    for (int k = 0; k < 3; ++k) ctrl[k] = seqs[((size_t)t * 12 + 3 * leg + k) * S + s];
     for (int sub = 0; sub + 1 < frame_skip; ++sub)
-      leg_substep_impl<NL, false>(M, dp, leg0, rep, st, ctrl, iterations, ls_iterations, rows,
-                                  static_cast<CostSensors<T>*>(nullptr),
-                                  static_cast<T*>(nullptr), (size_t)0);
+      leg_substep_impl<false>(M, dp, leg, rep, st, ctrl, iterations, ls_iterations, rows,
+                              static_cast<CostSensors<T>*>(nullptr), static_cast<T*>(nullptr),
+                              (size_t)0);
     CostSensors<T> sens;
-    leg_substep_impl<NL, false>(M, dp, leg0, rep, st, ctrl, iterations, ls_iterations, rows,
-                                &sens, static_cast<T*>(nullptr), (size_t)0);
-    cost = cost + stage_cost<NL>(sens, leg0, ctrl, prev, cmd, height, M.joint_centers);
+    leg_substep_impl<false>(M, dp, leg, rep, st, ctrl, iterations, ls_iterations, rows, &sens,
+                            static_cast<T*>(nullptr), (size_t)0);
+    cost = cost + stage_cost(sens, leg, ctrl, prev, cmd, height, M.joint_centers);
 #pragma unroll
-    for (int k = 0; k < 3; ++k)
-#pragma unroll
-      for (int l = 0; l < NL; ++l) prev[k][l] = ctrl[k][l];
+    for (int k = 0; k < 3; ++k) prev[k] = ctrl[k];
   }
   return cost;
 }

@@ -87,10 +87,10 @@ fused_rollout_kernel(const LegModel<Real>* __restrict__ model, const Real* __res
   const LaneIndex<SPLIT> t;
   const bool valid = t.robot < S;
   const int s = valid ? t.robot : S - 1;
-  const RowStore<1, Real, SPLIT> rows{reinterpret_cast<Real*>(qg_smem) + t.col, t.stride()};
-  const Real cost = rollout_cost<1>(*model, qpos0, qvel0, act0, seqs, prev0, cmd, lanes, t.leg,
-                                    t.rep, s, S, H, frame_skip, iterations, ls_iterations,
-                                    height, rows);
+  const RowStore<Real, SPLIT> rows{reinterpret_cast<Real*>(qg_smem) + t.col, t.stride()};
+  const Real cost = rollout_cost(*model, qpos0, qvel0, act0, seqs, prev0, cmd, lanes, t.leg,
+                                 t.rep, s, S, H, frame_skip, iterations, ls_iterations, height,
+                                 rows);
   if (valid && t.leg == 0 && t.rep == 0) out[s] = cost;
 }
 
@@ -106,7 +106,7 @@ int qg_model_size() { return (int)sizeof(qg::LegModel<QG_REAL>); }
 // CUDA error code, 0 if none
 int qg_kernel_info(int threads, int smem_bytes, int split, int* registers, int* local_bytes,
                    int* blocks_per_sm) {
-  return qg::with_split(split, [&](auto s) {
+  return qg::with_split(split, (int)cudaErrorInvalidValue, [&](auto s) {
     return qg::kernel_info(qg::fused_rollout_kernel<decltype(s)::value>, threads, smem_bytes,
                            registers, local_bytes, blocks_per_sm);
   });
@@ -128,7 +128,7 @@ int qg_fused_rollout(const void* model, const void* qpos0, const void* qvel0, co
                               (const Real*)base_mass_scale, (const Real*)tilt_x,
                               (const Real*)tilt_y,      (const Real*)terrain_amp,
                               (const Real*)terrain_freq};
-  return qg::with_split(split, [&](auto sp) {
+  return qg::with_split(split, (int)cudaErrorInvalidValue, [&](auto sp) {
     const auto kernel = qg::fused_rollout_kernel<decltype(sp)::value>;
     const int err = qg::allow_shared(kernel, smem_bytes);
     if (err != 0) return err;

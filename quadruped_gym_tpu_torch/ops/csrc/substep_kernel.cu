@@ -73,10 +73,10 @@ substep_kernel(const LegModel<Real>* __restrict__ model, const Real* __restrict_
   const LaneIndex<SPLIT> t;
   const bool valid = t.robot < B;
   const int b = valid ? t.robot : B - 1;
-  const RowStore<1, Real, SPLIT> rows{reinterpret_cast<Real*>(qg_smem) + t.col, t.stride()};
-  lane_substeps<1>(*model, qpos, qvel, act, ctrl, lanes, qpos_out, qvel_out, act_out, sens_out,
-                   t.leg, t.rep, (size_t)b, (size_t)B, nsub, iterations, ls_iterations,
-                   compute_sensors != 0, valid && t.rep == 0, rows);
+  const RowStore<Real, SPLIT> rows{reinterpret_cast<Real*>(qg_smem) + t.col, t.stride()};
+  lane_substeps(*model, qpos, qvel, act, ctrl, lanes, qpos_out, qvel_out, act_out, sens_out,
+                t.leg, t.rep, (size_t)b, (size_t)B, nsub, iterations, ls_iterations,
+                compute_sensors != 0, valid && t.rep == 0, rows);
 }
 
 }  // namespace qg
@@ -91,7 +91,7 @@ int qg_model_size() { return (int)sizeof(qg::LegModel<QG_REAL>); }
 // CUDA error code, 0 if none
 int qg_kernel_info(int threads, int smem_bytes, int split, int* registers, int* local_bytes,
                    int* blocks_per_sm) {
-  return qg::with_split(split, [&](auto s) {
+  return qg::with_split(split, (int)cudaErrorInvalidValue, [&](auto s) {
     return qg::kernel_info(qg::substep_kernel<decltype(s)::value>, threads, smem_bytes,
                            registers, local_bytes, blocks_per_sm);
   });
@@ -114,7 +114,7 @@ int qg_substeps(const void* model, const void* qpos, const void* qvel, const voi
                               (const Real*)base_mass_scale, (const Real*)tilt_x,
                               (const Real*)tilt_y,      (const Real*)terrain_amp,
                               (const Real*)terrain_freq};
-  return qg::with_split(split, [&](auto s) {
+  return qg::with_split(split, (int)cudaErrorInvalidValue, [&](auto s) {
     const auto kernel = qg::substep_kernel<decltype(s)::value>;
     const int err = qg::allow_shared(kernel, smem_bytes);
     if (err != 0) return err;

@@ -3,8 +3,9 @@ kernel's own arithmetic on the CPU.
 
 The CUDA source cannot run here, but its device code is plain C++ over
 one rollout: ``tests/torch_host_rollout.cpp`` compiles the same headers
-with g++ (the CUDA qualifiers defined away, the grid a loop) and the
-tests hold that build to the plain version, ``fused_rollout_cost_reference``.
+with g++ (the CUDA qualifiers defined away, the grid a loop, a robot's
+threads host threads in lockstep) and the tests hold that build to the
+plain version, ``fused_rollout_cost_reference``.
 The tests marked ``cuda`` run the kernels themselves on a card."""
 
 import ctypes
@@ -209,11 +210,10 @@ def host_lib(tmp_path_factory):
 
 
 def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None,
-                  quad=False, split=1):
-    """The kernels' rollout body built for the host: one thread a robot,
-    or with ``quad`` the one-leg form the card runs (4 x ``split`` threads
-    a robot: ``split`` replicas of a quad), whose copies of each cost must
-    agree in every bit."""
+                  split=1):
+    """The kernels' rollout body built for the host in the card's form:
+    4 x ``split`` threads a robot (``split`` replicas of a quad), whose
+    copies of each cost must agree in every bit."""
     dt = seqs.dtype
     P = cuda_engine.pack_model(m, dt)
     S = seqs.shape[0]
@@ -226,15 +226,12 @@ def _host_rollout(lib, m, st, seqs, cmd, prev, fs, it, lsi, dp=None,
     seq = seqs.permute(1, 2, 0).contiguous()
     cs = cuda_engine.command_scalars(cmd, dt).contiguous()
     out = torch.empty(S, dtype=dt)
-    name = "qg_host_{}rollout_{}".format(
-        "quad_" if quad else "", "f64" if dt == torch.float64 else "f32")
+    name = "qg_host_rollout_{}".format("f64" if dt == torch.float64 else "f32")
     differ = getattr(lib, name)(
         ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
         vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
-        ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13,
-        *((split,) if quad else ()))
-    if quad:
-        assert differ == 0, f"{differ} costs differ within their robot"
+        ptrs, out.data_ptr(), S, seqs.shape[1], fs, it, lsi, 0.13, split)
+    assert differ == 0, f"{differ} costs differ within their robot"
     return out
 
 
@@ -258,10 +255,19 @@ def test_host_substep_matches_leg_engine(host_lib, airborne, it):
                    torch.zeros(1, dtype=torch.float64),
                    torch.zeros((33, 1), dtype=torch.float64))
     ref = LE._step_impl(m, ls, torch.as_tensor(ctrl)[:, None], it, 8)
-    sens = np.zeros(6)
-    host_lib.qg_host_substep_f64(ctypes.addressof(P), q.ctypes.data,
-                                 qv.ctypes.data, act.ctypes.data,
-                                 ctrl.ctypes.data, it, 8, sens.ctypes.data)
+    # a batch of one lane through the substep kernel's body, a quad of
+    # threads
+    ins = [torch.as_tensor(x)[:, None].contiguous()
+           for x in (q, qv, act, ctrl)]
+    outs = [torch.full((1,) + x.shape, float("nan"), dtype=torch.float64)
+            for x in ins[:3]]
+    sens = torch.full((1, m.nsensordata, 1), float("nan"), dtype=torch.float64)
+    err = host_lib.qg_host_substeps_f64(
+        ctypes.addressof(P), *[x.data_ptr() for x in ins],
+        (ctypes.c_void_p * 7)(), *[x.data_ptr() for x in outs],
+        sens.data_ptr(), 1, 1, 1, it, 8, 1, 1)
+    assert err == 0
+    q, qv, act = (x[0, :, 0].numpy() for x in outs)
     np.testing.assert_allclose(q, ref.qpos[:, 0].numpy(), rtol=1e-12,
                                atol=1e-13)
     np.testing.assert_allclose(qv, ref.qvel[:, 0].numpy(), rtol=1e-10,
@@ -271,7 +277,8 @@ def test_host_substep_matches_leg_engine(host_lib, airborne, it):
     sl = SensorSlices.from_model(m)
     idx = [sl.vel, sl.vel + 1, sl.xaxis, sl.xaxis + 1, sl.zaxis + 2,
            sl.pos + 2]
-    np.testing.assert_allclose(sens, ref.sensordata[idx, 0].numpy(),
+    np.testing.assert_allclose(sens[0, idx, 0].numpy(),
+                               ref.sensordata[idx, 0].numpy(),
                                rtol=1e-10, atol=1e-11)
 
 
@@ -324,12 +331,12 @@ def test_host_rollout_float32(host_lib, name, budget):
     ("fast_plant", "grounded", 1, 2, True, torch.float64),
     ("fast_plant", "grounded", 1, 2, False, torch.float32),
 ])
-def test_host_quad_rollout_matches_whole_robot_form(host_lib, name, kind, H,
-                                                    fs, with_dp, dtype):
-    """The one-leg form (a quad of threads per robot, the legs' sums by
-    two exchange steps, the rows strided by the block) is the whole-robot
-    form with the same operations in the same order: equal in every bit,
-    and so as close to the plain version."""
+def test_host_quad_rollout_agrees_in_every_thread(host_lib, name, kind, H,
+                                                  fs, with_dp, dtype):
+    """The card's form at split 1 (a quad of threads per robot, the legs'
+    sums by two exchange steps, the rows strided by the block): each of
+    the robot's four threads returns the same cost in every bit, within
+    1e-8 (float64) or 1e-4 (float32) of the plain version."""
     m = _model(name)
     S = 5
     st, seqs, cmd, prev = _inputs(m, kind, S, H, seed=3 * H + fs, dtype=dtype)
@@ -340,10 +347,7 @@ def test_host_quad_rollout_matches_whole_robot_form(host_lib, name, kind, H,
             gain_range=(0.8, 1.2), mass_range=(0.9, 1.5),
             tilt_range=(-0.1, 0.1), terrain_amp_range=(0.0, 0.02),
             dtype=dtype)
-    whole = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
-    quad = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp,
-                         quad=True)
-    np.testing.assert_array_equal(quad.numpy(), whole.numpy())
+    quad = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
     ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, fs,
                                                    4, 8, dp=dp)
     tol = 1e-8 if dtype == torch.float64 else 1e-4
@@ -358,13 +362,13 @@ def test_host_quad_rollout_matches_whole_robot_form(host_lib, name, kind, H,
     ("fast_plant", "grounded", 1, 2, False, torch.float32, 2),
     ("fast_plant_nsec_none", "grounded", 1, 2, False, torch.float64, 2),
 ])
-def test_host_split_rollout_matches_whole_robot_form(host_lib, name, kind, H,
-                                                     fs, with_dp, dtype,
-                                                     split):
+def test_host_split_rollout_matches_split_one(host_lib, name, kind, H, fs,
+                                              with_dp, dtype, split):
     """Replicas (``split`` quads a rollout, each scanning a share of every
     hull and sharing the winners by exchange steps over the replica bits,
-    ties to the lower index): every thread's cost equals the whole-robot
-    form's in every bit, so B1's costs do not depend on the split."""
+    ties to the lower index): every thread's cost equals split 1's in
+    every bit, so B1's costs do not depend on the split, and split 1 is
+    within 1e-8 (float64) or 1e-4 (float32) of the plain version."""
     m = _model(name)
     S = 2
     st, seqs, cmd, prev = _inputs(m, kind, S, H, seed=5 * H + fs + split,
@@ -376,10 +380,14 @@ def test_host_split_rollout_matches_whole_robot_form(host_lib, name, kind, H,
             gain_range=(0.8, 1.2), mass_range=(0.9, 1.5),
             tilt_range=(-0.1, 0.1), terrain_amp_range=(0.0, 0.02),
             dtype=dtype)
-    whole = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
+    one = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp)
     reps = _host_rollout(host_lib, m, st, seqs, cmd, prev, fs, 4, 8, dp,
-                         quad=True, split=split)
-    np.testing.assert_array_equal(reps.numpy(), whole.numpy())
+                         split=split)
+    np.testing.assert_array_equal(reps.numpy(), one.numpy())
+    ref = cuda_engine.fused_rollout_cost_reference(m, st, seqs, cmd, prev, fs,
+                                                   4, 8, dp=dp)
+    tol = 1e-8 if dtype == torch.float64 else 1e-4
+    np.testing.assert_allclose(one.numpy(), ref.numpy(), rtol=tol, atol=tol)
 
 
 # --------------------------------------------------------------------------

@@ -6,9 +6,9 @@ launch geometry of its base groups, on the CPU.
 with its own frame) and the frame (one geom: the four threads of a robot
 scan a quarter of its hull each and share the winners, leg 0 keeps its
 slots). The host build runs the substep kernel's and the rollout
-kernel's bodies one thread a robot and in the card's form, a quad of
-threads a robot, or 2 or 4 replicas of the quad that split every
-hull's scans; all must agree in every bit and stay within 1e-8 (float64)
+kernel's bodies in the card's form, a quad of threads a robot, or 2 or 4
+replicas of the quad that split every hull's scans; every split must
+agree with split 1 in every bit, and split 1 stay within 1e-8 (float64)
 or 1e-4 (float32) of the plain version, from states where the hip servos
 and the frame touch the ground."""
 
@@ -67,26 +67,23 @@ def _ptrs(dp, dt):
                                          for v in lanes])
 
 
-def _host_substeps(lib, ls, ctrl, nsub, dp, quad, split=1):
-    """One thread a robot, or with ``quad`` 4 x ``split`` threads: then
-    each replica's outputs along a leading axis."""
+def _host_substeps(lib, ls, ctrl, nsub, dp, split=1):
+    """4 x ``split`` threads a robot, each replica's outputs along a
+    leading axis."""
     dt = ls.qpos.dtype
     P = cuda_engine.pack_model(M, dt)
     n = ls.qpos.shape[1]
     keep, ptrs = _ptrs(dp, dt)
     ins = [x.contiguous() for x in (ls.qpos, ls.qvel, ls.act, ctrl)]
-    lead = (split,) if quad else ()
-    outs = [torch.full(lead + x.shape, float("nan"), dtype=dt)
+    outs = [torch.full((split,) + x.shape, float("nan"), dtype=dt)
             for x in ins[:3]]
-    sens = torch.full(lead + (M.nsensordata, n), float("nan"), dtype=dt)
-    name = "qg_host_{}substeps_{}".format(
-        "quad_" if quad else "", "f64" if dt == F64 else "f32")
-    sizes = (n, n) if quad else (n,)
+    sens = torch.full((split, M.nsensordata, n), float("nan"), dtype=dt)
+    name = "qg_host_substeps_{}".format("f64" if dt == F64 else "f32")
     err = getattr(lib, name)(
         ctypes.addressof(P), *[x.data_ptr() for x in ins], ptrs,
-        *[x.data_ptr() for x in outs], sens.data_ptr(), *sizes, nsub, 4, 8, 1,
-        *((split,) if quad else ()))
-    assert not quad or err == 0
+        *[x.data_ptr() for x in outs], sens.data_ptr(), n, n, nsub, 4, 8, 1,
+        split)
+    assert err == 0
     return outs + [sens]
 
 
@@ -101,19 +98,16 @@ def _active(ls):
 
 @pytest.mark.parametrize("nsub,with_dp", [(1, False), (3, True)])
 def test_host_substeps_match_plain_version(host_lib, nsub, with_dp):
-    """Float64, both forms: the state and all 33 sensors within 1e-8 of
-    the plain version, the quad form equal to the whole-robot form in
-    every bit; the frame and the hip servos are in contact."""
+    """Float64: the state and all 33 sensors within 1e-8 of the plain
+    version; the frame and the hip servos are in contact."""
     ls, ctrl, dp = _lanes(F64, 3 + nsub, with_dp)
     servos, frame = _active(ls)
     assert servos > 0 and frame > 0
     ref = cuda_engine.control_step_reference(M, ls, ctrl, nsub, 4, 8, dp)
-    whole = _host_substeps(host_lib, ls, ctrl, nsub, dp, quad=False)
-    quad = _host_substeps(host_lib, ls, ctrl, nsub, dp, quad=True)
-    for w, q, f in zip(whole, quad, ("qpos", "qvel", "act", "sensordata")):
-        np.testing.assert_allclose(w.numpy(), getattr(ref, f).numpy(),
+    got = _host_substeps(host_lib, ls, ctrl, nsub, dp)
+    for g, f in zip(got, ("qpos", "qvel", "act", "sensordata")):
+        np.testing.assert_allclose(g[0].numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-8, atol=1e-8, err_msg=f)
-        np.testing.assert_array_equal(q[0].numpy(), w.numpy())
 
 
 def test_host_substeps_float32(host_lib):
@@ -121,26 +115,25 @@ def test_host_substeps_float32(host_lib):
     substeps at 4/8, at the 1e-4 that chip_smoke.py holds the card to."""
     ls, ctrl, _ = _lanes(F32, 11, False)
     ref = cuda_engine.control_step_reference(M, ls, ctrl, 4, 4, 8)
-    whole = _host_substeps(host_lib, ls, ctrl, 4, None, quad=False)
-    quad = _host_substeps(host_lib, ls, ctrl, 4, None, quad=True)
-    for w, q, f in zip(whole, quad, ("qpos", "qvel", "act", "sensordata")):
-        np.testing.assert_allclose(w.numpy(), getattr(ref, f).numpy(),
+    got = _host_substeps(host_lib, ls, ctrl, 4, None)
+    for g, f in zip(got, ("qpos", "qvel", "act", "sensordata")):
+        np.testing.assert_allclose(g[0].numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=f)
-        np.testing.assert_array_equal(q[0].numpy(), w.numpy())
 
 
 @pytest.mark.parametrize("split,nsub,dtype,with_dp", [
     (2, 2, F64, True), (4, 1, F64, False), (4, 2, F64, False),
     (2, 1, F32, False), (4, 3, F32, True), (2, 3, F32, False)])
-def test_host_split_substeps_match_whole_robot_form(host_lib, split, nsub,
-                                                    dtype, with_dp):
+def test_host_split_substeps_match_split_one(host_lib, split, nsub, dtype,
+                                             with_dp):
     """B2 with replicas from the pressed start (the frame and the hip
     servos in contact): each replica scans its share of every hull (of
     its leg's quarter of the frame's) and the winners are shared, so
-    every replica's state and sensors equal the whole-robot form's in
-    every bit, at every split. Two lanes (the frame and the hip servos
-    touch at 0, the hip servos at 3 cm): 4 x split host threads step
-    each in lockstep, so the lanes are few."""
+    every replica's state and sensors equal split 1's in every bit, at
+    every split, and split 1 is within 1e-8 (float64) or 1e-4 (float32)
+    of the plain version. Two lanes (the frame and the hip servos touch
+    at 0, the hip servos at 3 cm): 4 x split host threads step each in
+    lockstep, so the lanes are few."""
     ls, ctrl, dp = _lanes(dtype, 40 + split + nsub, with_dp)
     pick = [HEIGHTS.index(0.0), HEIGHTS.index(0.03)]
     ls = LaneState(*(x[..., pick] for x in ls))
@@ -149,13 +142,17 @@ def test_host_split_substeps_match_whole_robot_form(host_lib, split, nsub,
         dp = type(dp)(*(None if v is None else v[pick] for v in dp))
     servos, frame = _active(ls)
     assert servos > 0 and frame > 0
-    whole = _host_substeps(host_lib, ls, ctrl, nsub, dp, quad=False)
-    reps = _host_substeps(host_lib, ls, ctrl, nsub, dp, quad=True,
-                          split=split)
-    for w, r, f in zip(whole, reps, ("qpos", "qvel", "act", "sensordata")):
+    one = _host_substeps(host_lib, ls, ctrl, nsub, dp)
+    reps = _host_substeps(host_lib, ls, ctrl, nsub, dp, split=split)
+    for o, r, f in zip(one, reps, ("qpos", "qvel", "act", "sensordata")):
         assert r.shape[0] == split
         for q in r:
-            np.testing.assert_array_equal(q.numpy(), w.numpy(), err_msg=f)
+            np.testing.assert_array_equal(q.numpy(), o[0].numpy(), err_msg=f)
+    ref = cuda_engine.control_step_reference(M, ls, ctrl, nsub, 4, 8, dp)
+    tol = 1e-8 if dtype == F64 else 1e-4
+    for o, f in zip(one, ("qpos", "qvel", "act", "sensordata")):
+        np.testing.assert_allclose(o[0].numpy(), getattr(ref, f).numpy(),
+                                   rtol=tol, atol=tol, err_msg=f)
 
 
 def _rollout_inputs(dtype, z, S, H, seed):
@@ -170,7 +167,7 @@ def _rollout_inputs(dtype, z, S, H, seed):
     return st, seqs, make(t([0.2, 0.1]), t(0.3)), t(HOLD)
 
 
-def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, quad, split=1):
+def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, split=1):
     dt = seqs.dtype
     P = cuda_engine.pack_model(M, dt)
     S = seqs.shape[0]
@@ -179,15 +176,12 @@ def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, quad, split=1):
     seq = seqs.permute(1, 2, 0).contiguous()
     cs = cuda_engine.command_scalars(cmd, dt).contiguous()
     out = torch.empty(S, dtype=dt)
-    name = "qg_host_{}rollout_{}".format("quad_" if quad else "",
-                                         "f64" if dt == F64 else "f32")
+    name = "qg_host_rollout_{}".format("f64" if dt == F64 else "f32")
     differ = getattr(lib, name)(
         ctypes.addressof(P), vecs[0].data_ptr(), vecs[1].data_ptr(),
         vecs[2].data_ptr(), seq.data_ptr(), vecs[3].data_ptr(), cs.data_ptr(),
-        ptrs, out.data_ptr(), S, seqs.shape[1], fs, 4, 8, 0.13,
-        *((split,) if quad else ()))
-    if quad:
-        assert differ == 0, f"{differ} costs differ within their robot"
+        ptrs, out.data_ptr(), S, seqs.shape[1], fs, 4, 8, 0.13, split)
+    assert differ == 0, f"{differ} costs differ within their robot"
     return out
 
 
@@ -195,9 +189,9 @@ def _host_rollout(lib, st, seqs, cmd, prev, fs, dp, quad, split=1):
                                              (0.03, F64, True),
                                              (0.03, F32, False)])
 def test_host_rollout_matches_plain_version(host_lib, z, dtype, with_dp):
-    """The rollout kernel's body (B1) on ``full``: both forms equal in
-    every bit, within 1e-8 (float64) or 1e-4 (float32) of the plain
-    version."""
+    """The rollout kernel's body (B1) on ``full``: the four threads of a
+    robot equal in every bit, within 1e-8 (float64) or 1e-4 (float32) of
+    the plain version."""
     S = 4
     st, seqs, cmd, prev = _rollout_inputs(dtype, z, S, 1, seed=int(100 * z))
     dp = None
@@ -208,27 +202,28 @@ def test_host_rollout_matches_plain_version(host_lib, z, dtype, with_dp):
             dtype=dtype)
     ref = cuda_engine.fused_rollout_cost_reference(M, st, seqs, cmd, prev, 3,
                                                    4, 8, dp=dp)
-    whole = _host_rollout(host_lib, st, seqs, cmd, prev, 3, dp, quad=False)
-    quad = _host_rollout(host_lib, st, seqs, cmd, prev, 3, dp, quad=True)
-    np.testing.assert_array_equal(quad.numpy(), whole.numpy())
+    got = _host_rollout(host_lib, st, seqs, cmd, prev, 3, dp)
     tol = 1e-8 if dtype == F64 else 1e-4
-    np.testing.assert_allclose(whole.numpy(), ref.numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("z,dtype,split", [(0.0, F64, 2), (0.0, F64, 4),
                                            (0.03, F64, 4), (0.0, F32, 4),
                                            (0.03, F32, 2)])
-def test_host_split_rollout_matches_whole_robot_form(host_lib, z, dtype,
-                                                     split):
+def test_host_split_rollout_matches_split_one(host_lib, z, dtype, split):
     """B1 with replicas on ``full``, the base pressed to ``z``: every
-    thread's cost equals the whole-robot form's in every bit."""
+    thread's cost equals split 1's in every bit, and split 1 is within
+    1e-8 (float64) or 1e-4 (float32) of the plain version."""
     S = 2
     st, seqs, cmd, prev = _rollout_inputs(dtype, z, S, 1,
                                           seed=7 + split + int(100 * z))
-    whole = _host_rollout(host_lib, st, seqs, cmd, prev, 3, None, quad=False)
-    reps = _host_rollout(host_lib, st, seqs, cmd, prev, 3, None, quad=True,
-                         split=split)
-    np.testing.assert_array_equal(reps.numpy(), whole.numpy())
+    one = _host_rollout(host_lib, st, seqs, cmd, prev, 3, None)
+    reps = _host_rollout(host_lib, st, seqs, cmd, prev, 3, None, split=split)
+    np.testing.assert_array_equal(reps.numpy(), one.numpy())
+    ref = cuda_engine.fused_rollout_cost_reference(M, st, seqs, cmd, prev, 3,
+                                                   4, 8)
+    tol = 1e-8 if dtype == F64 else 1e-4
+    np.testing.assert_allclose(one.numpy(), ref.numpy(), rtol=tol, atol=tol)
 
 
 def test_pack_model_base_groups():

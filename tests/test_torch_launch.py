@@ -48,7 +48,8 @@ def test_limits_match_the_cuda_sources():
     assert cuda_engine.MAX_SLOTS == 3 * cuda_engine.MAX_GROUPS
     # both kernels take their bounds from launch.cuh and their rows from
     # dynamic shared memory, and are built for the splits the rule takes
-    with open(os.path.join(_build.CSRC, "launch.cuh")) as f:
+    # (lane_math.cuh::with_split)
+    with open(os.path.join(_build.CSRC, "lane_math.cuh")) as f:
         cases = re.findall(
             r"case (\d+): return f\(std::integral_constant<int, (\d+)>",
             f.read())

@@ -227,12 +227,11 @@ def host_lib(tmp_path_factory):
 
 
 def _host_substeps(lib, m, ls, ctrl, nsub, it, lsi, dp=None,
-                   compute_sensors=True, quad=False, n_store=None, split=1):
-    """The substep kernel's body built for the host: one thread a robot,
-    or with ``quad`` the one-leg form the card runs (4 x ``split`` threads
-    a robot: ``split`` replicas of a quad, each replica's outputs along a
-    leading axis), where lanes from ``n_store`` on run but store
-    nothing."""
+                   compute_sensors=True, n_store=None, split=1):
+    """The substep kernel's body built for the host in the card's form:
+    4 x ``split`` threads a robot (``split`` replicas of a quad), each
+    replica's outputs along a leading axis; lanes from ``n_store`` on run
+    but store nothing."""
     dt = ls.qpos.dtype
     P = cuda_engine.pack_model(m, dt)
     n = ls.qpos.shape[1]
@@ -242,18 +241,17 @@ def _host_substeps(lib, m, ls, ctrl, nsub, it, lsi, dp=None,
     ptrs = (ctypes.c_void_p * 7)(*[0 if v is None else v.data_ptr()
                                    for v in lanes])
     ins = [x.contiguous() for x in (ls.qpos, ls.qvel, ls.act, ctrl.to(dt))]
-    lead = (split,) if quad else ()
-    outs = [torch.full(lead + x.shape, float("nan"), dtype=dt)
+    outs = [torch.full((split,) + x.shape, float("nan"), dtype=dt)
             for x in ins[:3]]
-    sens = torch.full(lead + (m.nsensordata, n), float("nan"), dtype=dt)
-    name = "qg_host_{}substeps_{}".format(
-        "quad_" if quad else "", "f64" if dt == torch.float64 else "f32")
-    sizes = (n, n if n_store is None else n_store) if quad else (n,)
+    sens = torch.full((split, m.nsensordata, n), float("nan"), dtype=dt)
+    name = "qg_host_substeps_{}".format(
+        "f64" if dt == torch.float64 else "f32")
     err = getattr(lib, name)(
         ctypes.addressof(P), *[x.data_ptr() for x in ins], ptrs,
-        *[x.data_ptr() for x in outs], sens.data_ptr(), *sizes, nsub, it, lsi,
-        int(compute_sensors), *((split,) if quad else ()))
-    assert not quad or err == 0
+        *[x.data_ptr() for x in outs], sens.data_ptr(), n,
+        n if n_store is None else n_store, nsub, it, lsi,
+        int(compute_sensors), split)
+    assert err == 0
     return outs[0], outs[1], outs[2], sens
 
 
@@ -286,7 +284,8 @@ def test_host_substeps_match_plain_version(host_lib, name, kind, nsub,
     tm, ls, ctrl, dp = _lane_inputs(name, kind, 7 + nsub, torch.float64, 13,
                                     with_dp)
     ref = cuda_engine.control_step_reference(tm, ls, ctrl, nsub, 4, 8, dp)
-    got = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp)
+    got = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8,
+                                        dp)]
     for g, f in zip(got, ("qpos", "qvel", "act", "sensordata")):
         np.testing.assert_allclose(g.numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-8, atol=1e-8, err_msg=f)
@@ -298,8 +297,8 @@ def test_host_substeps_without_sensors(host_lib):
                                    5, False)
     ref = cuda_engine.step_reference(tm, ls, ctrl, 4, 8,
                                      compute_sensors=False)
-    got = _host_substeps(host_lib, tm, ls, ctrl, 1, 4, 8,
-                         compute_sensors=False)
+    got = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, 1, 4, 8,
+                                        compute_sensors=False)]
     np.testing.assert_allclose(got[1].numpy(), ref.qvel.numpy(), rtol=1e-8,
                                atol=1e-8)
     assert float(got[3].abs().max()) == 0.0 == float(
@@ -316,7 +315,7 @@ def test_host_substeps_float32(host_lib, name, kind, budget):
     1e-4 is what chip_smoke.py holds the card to as well."""
     tm, ls, ctrl, _ = _lane_inputs(name, kind, 17, torch.float32, 16, False)
     ref = cuda_engine.control_step_reference(tm, ls, ctrl, 4, *budget)
-    got = _host_substeps(host_lib, tm, ls, ctrl, 4, *budget)
+    got = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, 4, *budget)]
     for g, f in zip(got, ("qpos", "qvel", "act", "sensordata")):
         np.testing.assert_allclose(g.numpy(), getattr(ref, f).numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=f)
@@ -328,26 +327,42 @@ def test_host_substeps_float32(host_lib, name, kind, budget):
     ("fast_plant", "low", 2, False, True, torch.float64),
     ("fast_plant", "low", 2, True, True, torch.float32),
 ])
-def test_host_quad_substeps_match_whole_robot_form(host_lib, name, kind, nsub,
-                                                   with_dp, sensors, dtype):
-    """The one-leg form the card runs (a quad of threads per lane: the
-    base rows and base-site sensors written by the thread of leg 0, each
-    joint's rows and position sensor by its leg's thread) against the
-    whole-robot form: the same operations in the same order, so equal in
-    every bit. The last two lanes run but must store nothing, as threads
-    past the ragged edge of a block do."""
+def test_host_quad_substeps_store_only_their_lanes(host_lib, name, kind,
+                                                   nsub, with_dp, sensors,
+                                                   dtype):
+    """The card's form at split 1 (a quad of threads per lane: the base
+    rows and base-site sensors written by the thread of leg 0, each
+    joint's rows and position sensor by its leg's thread): the last two
+    lanes run but must store nothing, as threads past the ragged edge of a
+    block do, and the lanes before them equal those of a run that stores
+    every lane in every bit, within 1e-8 (float64) or 1e-4 (float32) of
+    the plain version."""
     n, keep = 6, 4
     tm, ls, ctrl, dp = _lane_inputs(name, kind, 23 + nsub, dtype, n, with_dp)
-    whole = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors)
+    every = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8,
+                                          dp, sensors)]
     quad = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8,
-                                         dp, sensors, quad=True,
-                                         n_store=keep)]
-    for w, q in zip(whole, quad):
+                                         dp, sensors, n_store=keep)]
+    for w, q in zip(every, quad):
         np.testing.assert_array_equal(q[:, :keep].numpy(),
                                       w[:, :keep].numpy())
         assert bool(torch.isnan(q[:, keep:]).all())
     if not sensors:
         assert float(quad[3][:, :keep].abs().max()) == 0.0
+    _assert_plain(tm, ls, ctrl, nsub, dp, sensors, every)
+
+
+def _assert_plain(tm, ls, ctrl, nsub, dp, sensors, got):
+    """``got`` (qpos, qvel, act, sensordata) within 1e-8 (float64) or 1e-4
+    (float32) of the plain version after ``nsub`` substeps; the sensors
+    only when they were computed."""
+    ref = cuda_engine.control_step_reference(tm, ls, ctrl, nsub, 4, 8, dp)
+    tol = 1e-8 if ls.qpos.dtype == torch.float64 else 1e-4
+    fields = ("qpos", "qvel", "act", "sensordata")[:4 if sensors else 3]
+    for g, f in zip(got, fields):
+        np.testing.assert_allclose(
+            g.numpy(), getattr(ref, f)[:, :g.shape[1]].numpy(), rtol=tol,
+            atol=tol, err_msg=f)
 
 
 @pytest.mark.parametrize("name,kind,nsub,with_dp,sensors,dtype,split", [
@@ -359,24 +374,25 @@ def test_host_quad_substeps_match_whole_robot_form(host_lib, name, kind, nsub,
     ("fast_plant", "low", 2, True, True, torch.float32, 2),
     ("fast_plant", "grounded", 2, False, True, torch.float32, 4),
 ])
-def test_host_split_substeps_match_whole_robot_form(host_lib, name, kind,
-                                                    nsub, with_dp, sensors,
-                                                    dtype, split):
+def test_host_split_substeps_match_split_one(host_lib, name, kind, nsub,
+                                             with_dp, sensors, dtype, split):
     """Replicas (``split`` quads a lane, each scanning a share of every
     hull and sharing the winners, every replica writing the same rows into
-    its leg's one column): every replica's state and sensors equal the
-    whole-robot form in every bit, so the card's outputs do not depend on
-    the split (the test above holds split 1 to the same form). The last
-    lanes run but store nothing."""
+    its leg's one column): every replica's state and sensors equal split
+    1's in every bit, so the card's outputs do not depend on the split,
+    and split 1 is within 1e-8 (float64) or 1e-4 (float32) of the plain
+    version. The last lane runs but stores nothing."""
     n, keep = 3, 2
     tm, ls, ctrl, dp = _lane_inputs(name, kind, 31 + split + nsub, dtype, n,
                                     with_dp)
-    whole = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors)
+    one = [x[0] for x in _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8,
+                                        dp, sensors, n_store=keep)]
     reps = _host_substeps(host_lib, tm, ls, ctrl, nsub, 4, 8, dp, sensors,
-                          quad=True, n_store=keep, split=split)
-    for w, r in zip(whole, reps):
+                          n_store=keep, split=split)
+    for o, r in zip(one, reps):
         assert r.shape[0] == split
         for q in r:
-            np.testing.assert_array_equal(q[:, :keep].numpy(),
-                                          w[:, :keep].numpy())
+            np.testing.assert_array_equal(q.numpy(), o.numpy())
             assert bool(torch.isnan(q[:, keep:]).all())
+    _assert_plain(tm, ls, ctrl, nsub, dp, sensors,
+                  [x[:, :keep] for x in one])

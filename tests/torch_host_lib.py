@@ -24,22 +24,15 @@ def build(tmp_dir) -> ctypes.CDLL:
                     os.path.join(HERE, "torch_host_rollout.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(out)
+    # the card's form, 4 x split host threads a robot (split replicas of a
+    # quad); the last argument is the split
     for dt in ("f32", "f64"):
-        getattr(lib, f"qg_host_rollout_{dt}").argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_double])
-        getattr(lib, f"qg_host_substeps_{dt}").argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5)
+        fn = getattr(lib, f"qg_host_rollout_{dt}")
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_int])
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"qg_host_substeps_{dt}")
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        fn.restype = ctypes.c_int
         getattr(lib, f"qg_model_size_{dt}").restype = ctypes.c_int
-        # the one-leg form the card runs, 4 x split host threads per
-        # robot (split replicas of a quad); the last argument is split
-        quad = getattr(lib, f"qg_host_quad_rollout_{dt}")
-        quad.argtypes = getattr(lib, f"qg_host_rollout_{dt}").argtypes + [
-            ctypes.c_int]
-        quad.restype = ctypes.c_int
-        quad = getattr(lib, f"qg_host_quad_substeps_{dt}")
-        quad.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-        quad.restype = ctypes.c_int
-    lib.qg_row_vals.restype = ctypes.c_int
-    lib.qg_host_substep_f64.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib

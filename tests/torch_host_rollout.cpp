@@ -2,15 +2,13 @@
 // kernels' own arithmetic: the CUDA qualifiers become plain inline
 // functions and the grid becomes a loop over rollouts or lanes.
 //
-// Two forms of the same source are built. With NL = 4 one host thread
-// carries a whole robot and the sum over the legs is (0 + 1) + (2 + 3) in
-// place. With NL = 1, the form the card runs, a robot is carried by
-// 4 x SPLIT host threads in lockstep, SPLIT replicas of a quad with one
-// thread per leg (SPLIT 1, 2 or 4): quad_sum and lane_best below do the
-// butterfly steps of the card's __shfl_xor_sync through a small exchange
-// buffer and a spin barrier, replica_fence is that barrier, and the
-// contact rows are laid out [value][leg] with a stride of 4, one column a
-// leg shared by its replicas, as a block of one robot would.
+// A robot is carried as on the card: by 4 x SPLIT host threads in
+// lockstep, SPLIT replicas of a quad with one thread per leg (SPLIT 1, 2
+// or 4). quad_sum and lane_best below do the butterfly steps of the
+// card's __shfl_xor_sync through a small exchange buffer and a spin
+// barrier, replica_fence is that barrier, and the contact rows are laid
+// out [value][leg] with a stride of 4, one column a leg shared by its
+// replicas, as a block of one robot would.
 #define __device__
 #define __forceinline__ inline
 #define QG_HOST
@@ -18,7 +16,6 @@
 #include <cmath>
 #include <cstddef>
 #include <thread>
-#include <type_traits>
 #include <vector>
 using std::fabs; using std::fmax; using std::fmin; using std::sqrt; using std::sin;
 using std::cos; using std::exp; using std::pow;
@@ -121,39 +118,14 @@ template <typename T, int SPLIT, typename Body> static void run_group(Body body)
       qg::tl_group = &group;
       qg::tl_lane = lane;
       qg::tl_buf = 0;
-      body(lane & 3, lane >> 2, qg::RowStore<1, T, SPLIT>{smem.data() + (lane & 3), 4});
+      body(lane & 3, lane >> 2, qg::RowStore<T, SPLIT>{smem.data() + (lane & 3), 4});
     });
   for (auto& t : threads) t.join();
 }
 
-// f(std::integral_constant<int, SPLIT>()) for a split of 1, 2 or 4
-template <typename F> static int with_split(int split, F&& f) {
-  switch (split) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 2: return f(std::integral_constant<int, 2>());
-    case 4: return f(std::integral_constant<int, 4>());
-    default: return -1;
-  }
-}
-
-template <typename T>
-static void run(const void* model, const void* qpos0, const void* qvel0, const void* act0,
-                const void* seqs, const void* prev0, const void* cmd, const void* const* dp,
-                void* out, int S, int H, int frame_skip, int iterations, int ls_iterations,
-                double height) {
-  const qg::DomainLanes<T> lanes = domain_lanes<T>(dp);
-  std::vector<T> buf((size_t)qg::MAX_SLOTS * qg::ROW_VALS * 4);
-  const qg::RowStore<4, T> rows{buf.data(), 1};
-  for (int s = 0; s < S; ++s)
-    ((T*)out)[s] = qg::rollout_cost<4>(*(const qg::LegModel<T>*)model, (const T*)qpos0,
-                                       (const T*)qvel0, (const T*)act0, (const T*)seqs,
-                                       (const T*)prev0, (const T*)cmd, lanes, 0, 0, s, S, H,
-                                       frame_skip, iterations, ls_iterations, (T)height, rows);
-}
-
-// the same rollouts in the one-leg form, 4 x split threads a robot;
-// returns how many rollouts' costs differ in any bit between the robot's
-// threads (must be 0), or -1 for a split other than 1, 2, 4
+// the rollouts, 4 x split threads a robot; returns how many rollouts'
+// costs differ in any bit between the robot's threads (must be 0), or -1
+// for a split other than 1, 2, 4
 template <typename T>
 static int run_quads(const void* model, const void* qpos0, const void* qvel0, const void* act0,
                      const void* seqs, const void* prev0, const void* cmd,
@@ -161,11 +133,11 @@ static int run_quads(const void* model, const void* qpos0, const void* qvel0, co
                      int iterations, int ls_iterations, double height, int split) {
   const qg::DomainLanes<T> lanes = domain_lanes<T>(dp);
   std::vector<T> costs((size_t)4 * split * S);
-  return with_split(split, [&](auto sp) {
+  return qg::with_split(split, -1, [&](auto sp) {
     constexpr int SPLIT = decltype(sp)::value;
-    run_group<T, SPLIT>([&](int leg, int rep, qg::RowStore<1, T, SPLIT> rows) {
+    run_group<T, SPLIT>([&](int leg, int rep, qg::RowStore<T, SPLIT> rows) {
       for (int s = 0; s < S; ++s)
-        costs[(size_t)(4 * rep + leg) * S + s] = qg::rollout_cost<1>(
+        costs[(size_t)(4 * rep + leg) * S + s] = qg::rollout_cost(
             *(const qg::LegModel<T>*)model, (const T*)qpos0, (const T*)qvel0, (const T*)act0,
             (const T*)seqs, (const T*)prev0, (const T*)cmd, lanes, leg, rep, s, S, H,
             frame_skip, iterations, ls_iterations, (T)height, rows);
@@ -182,27 +154,12 @@ static int run_quads(const void* model, const void* qpos0, const void* qvel0, co
   });
 }
 
-// the substep kernel's body on every lane of (d, B) arrays
-template <typename T>
-static void run_substeps(const void* model, const void* qpos, const void* qvel, const void* act,
-                         const void* ctrl, const void* const* dp, void* qpos_out,
-                         void* qvel_out, void* act_out, void* sens_out, int B, int nsub,
-                         int iterations, int ls_iterations, int compute_sensors) {
-  const qg::DomainLanes<T> lanes = domain_lanes<T>(dp);
-  std::vector<T> buf((size_t)qg::MAX_SLOTS * qg::ROW_VALS * 4);
-  const qg::RowStore<4, T> rows{buf.data(), 1};
-  for (int b = 0; b < B; ++b)
-    qg::lane_substeps<4>(*(const qg::LegModel<T>*)model, (const T*)qpos, (const T*)qvel,
-                         (const T*)act, (const T*)ctrl, lanes, (T*)qpos_out, (T*)qvel_out,
-                         (T*)act_out, (T*)sens_out, 0, 0, (size_t)b, (size_t)B, nsub,
-                         iterations, ls_iterations, compute_sensors != 0, true, rows);
-}
-
-// the same in the one-leg form, 4 x split threads a lane. Each replica
-// writes its own copy of the outputs, planes of (split, d, B): where the
-// card stores replica 0's, the tests hold every replica's. Lanes b >=
-// B_store run but store nothing, as the card's threads past the ragged
-// edge do. Returns -1 for a split other than 1, 2, 4.
+// the substep kernel's body on every lane of (d, B) arrays, 4 x split
+// threads a lane. Each replica writes its own copy of the outputs, planes
+// of (split, d, B): where the card stores replica 0's, the tests hold
+// every replica's. Lanes b >= B_store run but store nothing, as the
+// card's threads past the ragged edge do. Returns -1 for a split other
+// than 1, 2, 4.
 template <typename T>
 static int run_quad_substeps(const void* model, const void* qpos, const void* qvel,
                              const void* act, const void* ctrl, const void* const* dp,
@@ -211,17 +168,16 @@ static int run_quad_substeps(const void* model, const void* qpos, const void* qv
                              int compute_sensors, int split) {
   const qg::DomainLanes<T> lanes = domain_lanes<T>(dp);
   const qg::LegModel<T>& M = *(const qg::LegModel<T>*)model;
-  return with_split(split, [&](auto sp) {
+  return qg::with_split(split, -1, [&](auto sp) {
     constexpr int SPLIT = decltype(sp)::value;
-    run_group<T, SPLIT>([&](int leg, int rep, qg::RowStore<1, T, SPLIT> rows) {
+    run_group<T, SPLIT>([&](int leg, int rep, qg::RowStore<T, SPLIT> rows) {
       const size_t r = (size_t)rep * B;
       for (int b = 0; b < B; ++b)
-        qg::lane_substeps<1>(M, (const T*)qpos, (const T*)qvel, (const T*)act,
-                             (const T*)ctrl, lanes, (T*)qpos_out + 19 * r,
-                             (T*)qvel_out + 18 * r, (T*)act_out + 12 * r,
-                             (T*)sens_out + M.nsensordata * r, leg, rep, (size_t)b,
-                             (size_t)B, nsub, iterations, ls_iterations, compute_sensors != 0,
-                             b < B_store, rows);
+        qg::lane_substeps(M, (const T*)qpos, (const T*)qvel, (const T*)act, (const T*)ctrl,
+                          lanes, (T*)qpos_out + 19 * r, (T*)qvel_out + 18 * r,
+                          (T*)act_out + 12 * r, (T*)sens_out + M.nsensordata * r, leg, rep,
+                          (size_t)b, (size_t)B, nsub, iterations, ls_iterations,
+                          compute_sensors != 0, b < B_store, rows);
     });
     return 0;
   });
@@ -231,81 +187,29 @@ extern "C" {
 #define QG_SUBSTEP_ARGS                                                                   \
   const void *model, const void *qpos, const void *qvel, const void *act, const void *ctrl, \
       const void *const *dp, void *qpos_out, void *qvel_out, void *act_out, void *sens_out
-void qg_host_substeps_f32(QG_SUBSTEP_ARGS, int B, int nsub, int iterations, int ls_iterations,
-                          int compute_sensors) {
-  run_substeps<float>(model, qpos, qvel, act, ctrl, dp, qpos_out, qvel_out, act_out, sens_out, B,
-                      nsub, iterations, ls_iterations, compute_sensors);
-}
-void qg_host_substeps_f64(QG_SUBSTEP_ARGS, int B, int nsub, int iterations, int ls_iterations,
-                          int compute_sensors) {
-  run_substeps<double>(model, qpos, qvel, act, ctrl, dp, qpos_out, qvel_out, act_out, sens_out,
-                       B, nsub, iterations, ls_iterations, compute_sensors);
-}
-int qg_host_quad_substeps_f32(QG_SUBSTEP_ARGS, int B, int B_store, int nsub, int iterations,
-                              int ls_iterations, int compute_sensors, int split) {
+int qg_host_substeps_f32(QG_SUBSTEP_ARGS, int B, int B_store, int nsub, int iterations,
+                         int ls_iterations, int compute_sensors, int split) {
   return run_quad_substeps<float>(model, qpos, qvel, act, ctrl, dp, qpos_out, qvel_out,
                                   act_out, sens_out, B, B_store, nsub, iterations,
                                   ls_iterations, compute_sensors, split);
 }
-int qg_host_quad_substeps_f64(QG_SUBSTEP_ARGS, int B, int B_store, int nsub, int iterations,
-                              int ls_iterations, int compute_sensors, int split) {
+int qg_host_substeps_f64(QG_SUBSTEP_ARGS, int B, int B_store, int nsub, int iterations,
+                         int ls_iterations, int compute_sensors, int split) {
   return run_quad_substeps<double>(model, qpos, qvel, act, ctrl, dp, qpos_out, qvel_out,
                                    act_out, sens_out, B, B_store, nsub, iterations,
                                    ls_iterations, compute_sensors, split);
 }
-// one substep of one robot in place; sens (6,): vel xy, xaxis xy, zaxis z, pos z
-void qg_host_substep_f64(const void* model, double* q, double* qv, double* act,
-                         const double* ctrl, int iterations, int ls_iterations, double* sens) {
-  qg::Domain<double> dp{};
-  dp.gain = 1; dp.mass = 1;
-  qg::LegState<4, double> st;
-  double c[3][4];
-  for (int i = 0; i < 7; ++i) st.qb[i] = q[i];
-  for (int i = 0; i < 6; ++i) st.vf[i] = qv[i];
-  for (int k = 0; k < 3; ++k)
-    for (int l = 0; l < 4; ++l) {
-      st.q[k][l] = q[7 + 3 * l + k];
-      st.qv[k][l] = qv[6 + 3 * l + k];
-      st.act[k][l] = act[3 * l + k];
-      c[k][l] = ctrl[3 * l + k];
-    }
-  std::vector<double> buf((size_t)qg::MAX_SLOTS * qg::ROW_VALS * 4);
-  qg::CostSensors<double> cs;
-  qg::leg_substep_impl<4, false>(*(const qg::LegModel<double>*)model, dp, 0, 0, st, c,
-                                 iterations, ls_iterations,
-                                 qg::RowStore<4, double>{buf.data(), 1}, &cs,
-                                 static_cast<double*>(nullptr), (size_t)0);
-  for (int i = 0; i < 7; ++i) q[i] = st.qb[i];
-  for (int i = 0; i < 6; ++i) qv[i] = st.vf[i];
-  for (int k = 0; k < 3; ++k)
-    for (int l = 0; l < 4; ++l) {
-      q[7 + 3 * l + k] = st.q[k][l];
-      qv[6 + 3 * l + k] = st.qv[k][l];
-      act[3 * l + k] = st.act[k][l];
-    }
-  const double v[6] = {cs.vel[0], cs.vel[1], cs.xaxis[0], cs.xaxis[1], cs.zaxis_z, cs.pos_z};
-  for (int i = 0; i < 6; ++i) sens[i] = v[i];
-}
 int qg_model_size_f32() { return (int)sizeof(qg::LegModel<float>); }
 int qg_model_size_f64() { return (int)sizeof(qg::LegModel<double>); }
-int qg_row_vals() { return qg::ROW_VALS; }
 #define QG_ROLLOUT_ARGS                                                                      \
   const void *model, const void *qpos0, const void *qvel0, const void *act0, const void *seqs, \
       const void *prev0, const void *cmd, const void *const *dp, void *out, int S, int H,      \
       int frame_skip, int iterations, int ls_iterations, double height
-void qg_host_rollout_f32(QG_ROLLOUT_ARGS) {
-  run<float>(model, qpos0, qvel0, act0, seqs, prev0, cmd, dp, out, S, H, frame_skip, iterations,
-             ls_iterations, height);
-}
-void qg_host_rollout_f64(QG_ROLLOUT_ARGS) {
-  run<double>(model, qpos0, qvel0, act0, seqs, prev0, cmd, dp, out, S, H, frame_skip, iterations,
-              ls_iterations, height);
-}
-int qg_host_quad_rollout_f32(QG_ROLLOUT_ARGS, int split) {
+int qg_host_rollout_f32(QG_ROLLOUT_ARGS, int split) {
   return run_quads<float>(model, qpos0, qvel0, act0, seqs, prev0, cmd, dp, out, S, H, frame_skip,
                           iterations, ls_iterations, height, split);
 }
-int qg_host_quad_rollout_f64(QG_ROLLOUT_ARGS, int split) {
+int qg_host_rollout_f64(QG_ROLLOUT_ARGS, int split) {
   return run_quads<double>(model, qpos0, qvel0, act0, seqs, prev0, cmd, dp, out, S, H,
                            frame_skip, iterations, ls_iterations, height, split);
 }
