@@ -49,7 +49,11 @@ Phases, each of which raises on failure (nothing is caught):
    pressed to 3 cm (the hip servos touch) and to the floor (the frame
    too, with DomainParams), float32 at the env's width from a standing
    start and from 3 cm (B2: at most 6 of 2,048 lanes may part, as the
-   plain version's float32 parts from its float64).
+   plain version's float32 parts from its float64). The observation
+   kernel (``cuda_engine.po_window``) at the env's width and at one env,
+   float32 and float64, the window pushed and filled, against its plain
+   version: copies equal in every bit, the rest within a few ulp; then
+   it and its plain version timed at the env's width.
 4. main: the first slice's path at full bench width: ``init_carry`` and 3
    receding-horizon periods of MPPI ``plan_and_act`` (65,536 rollouts,
    H=50, frame_skip 5, fused kernel, Newton/line-search 2/4, float32) on
@@ -221,6 +225,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -677,6 +682,141 @@ def check_substep(rec, label, model, kind, B, nsub, budget, dtype, tol,
     return max(errs.values())
 
 
+# the observation kernel against its plain version, as
+# tests/test_torch_observation_kernel.py holds its host build: copies equal
+# in every bit; the quaternion and the heading within a few ulp (the norms'
+# order of summation, fused multiply-adds), the Euler angles within that
+# over sqrt(1 - s**2), s the sine of the pitch (asin and the atan2s lose
+# digits near gimbal lock), at most sqrt(2 tol)
+OBS_TOL = {torch.float64: 1e-12, torch.float32: 8 * 2.0**-23}
+OBS_WINDOW = 10  # the trainer's window
+OBS_COMPUTED = [6, 7, 8, 25]  # the Euler angles and the heading
+OBS_GRAPH_CALLS = 20
+
+
+def observation_inputs(n, dtype, rng, dev):
+    """``cuda_engine.po_window``'s arguments for ``n`` envs as the env step
+    holds them (sensordata the transpose of a lane state's, the filter
+    quaternion a view of qpos), times on both sides of settling_time / 2
+    = 0.5; from 4 envs on, env 0 has zero gyro, env 1 zero accel, env 2
+    both, env 3 sits at 0.5."""
+    from quadruped_gym_tpu_torch.models import spec
+    from quadruped_gym_tpu_torch.tasks import commands, observations
+    from quadruped_gym_tpu_torch.tasks.rewards import SensorSlices
+
+    sl = SensorSlices.from_model(spec.get_fast_plant_model())
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    lanes = rng.standard_normal((33, n))
+    lanes[sl.accel + 2] += 9.81
+    qpos = rng.standard_normal((n, 19))
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    time = rng.uniform(0.0, 1.0, n)
+    if n >= 4:
+        lanes[sl.gyro:sl.gyro + 3, [0, 2]] = 0.0
+        lanes[sl.accel:sl.accel + 3, [1, 2]] = 0.0
+        time[:3] = 0.75
+        time[3] = 0.5
+    cmd = commands.make(t(rng.uniform(-0.5, 0.5, (n, 2))),
+                        t(rng.uniform(-3.0, 3.0, n)))
+    carry = observations.PoObsCarry(
+        mad_quat=t(qpos)[:, 3:7],
+        buffer=t(rng.standard_normal((n, OBS_WINDOW, 26))))
+    return (sl, t(lanes).T, t(rng.uniform(-1, 1, (n, 12))), cmd, carry,
+            t(time), 1.0, 0.02)
+
+
+def check_observation(rec, seed=31, iters=50):
+    """The observation kernel (``cuda_engine.po_window``) against its plain
+    version on the card, at the env's width and at one env (the gym env),
+    float32 and float64, the window pushed and filled; then both timed
+    at the env's width in float32 (CUDA events, medians)."""
+    from quadruped_gym_tpu_torch.ops import cuda_engine
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        tol = OBS_TOL[dtype]
+        for n in (N_ENVS, 1):
+            for fill in (False, True):
+                args = observation_inputs(n, dtype, rng, dev)
+                before = cuda_engine.launch_counts["po_window"]
+                got = cuda_engine.po_window(*args, fill=fill)
+                torch.cuda.synchronize()
+                if cuda_engine.launch_counts["po_window"] != before + 1:
+                    raise AssertionError("po_window did not launch once")
+                want = cuda_engine.po_window_reference(*args, fill=fill)
+                frame, ref = got.buffer[:, -1], want.buffer[:, -1]
+                copied = [k for k in range(26) if k not in OBS_COMPUTED]
+                old = args[4].buffer
+                kept = (torch.equal(got.buffer, frame[:, None].expand_as(old))
+                        if fill else torch.equal(got.buffer[:, :-1],
+                                                 old[:, 1:]))
+                copies_equal = kept and torch.equal(frame[:, copied],
+                                                    ref[:, copied])
+                w, x, y, z = want.mad_quat.double().unbind(-1)
+                s = 2.0 * (w * y - z * x)
+                euler_room = tol / torch.sqrt(torch.clamp_min(1.0 - s * s,
+                                                              tol / 2))
+                room = torch.stack([euler_room] * 3 + [
+                    torch.full_like(euler_room, tol)], dim=1)
+                room = room + tol * ref[:, OBS_COMPUTED].double().abs()
+                gap = (frame[:, OBS_COMPUTED]
+                       - ref[:, OBS_COMPUTED]).double().abs()
+                qgap = (got.mad_quat - want.mad_quat).abs()
+                err = max(float(gap.max()), float(qgap.max()))
+                ok = (copies_equal and bool((gap <= room).all())
+                      and bool((qgap <= tol + tol * want.mad_quat.abs())
+                               .all()))
+                label = (f"{'fill' if fill else 'push'} n={n} "
+                         f"{str(dtype).split('.')[-1]}")
+                log(f"check observation {label}: copies equal "
+                    f"{copies_equal}; max_abs_err of the computed entries "
+                    f"{err:.3e} (tol {tol:.3g}, the Euler angles' scaled "
+                    f"by their conditioning); card: {rec['card']}")
+                if not ok:
+                    raise AssertionError(f"observation {label}: the kernel "
+                                         "disagrees with its plain version")
+                rec.setdefault("checks", {})[f"observation {label}"] = err
+                if dtype == torch.float32 and n == N_ENVS:
+                    worst = max(worst, err)
+    rec["observation_max_abs_err"] = worst
+    # both timed at the env's width, float32, the window pushed: a call
+    # eagerly (the wrapper's host time included) and a call inside a CUDA
+    # graph of OBS_GRAPH_CALLS calls, as the env step's graph replays it
+    args = observation_inputs(N_ENVS, torch.float32, rng, dev)
+    times = {}
+    for name, fn in (("", lambda: cuda_engine.po_window(*args)),
+                     ("plain_", lambda: cuda_engine.po_window_reference(
+                         *args))):
+        times[f"{name}eager_ms"] = statistics.median(event_ms(fn, iters))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(OBS_GRAPH_CALLS):
+                fn()
+        times[f"{name}ms"] = statistics.median(
+            event_ms(graph.replay, iters)) / OBS_GRAPH_CALLS
+    # bytes: the window read and written, the 29 values an env reads
+    # (gyro, accel, velocity, ctrl, the command's velocity and heading,
+    # the quaternion, the time) and the 4 it writes besides
+    nbytes = 4 * N_ENVS * (2 * OBS_WINDOW * 26 + 29 + 4)
+    bound_ms = 1e3 * nbytes / PEAK_BYTES
+    rec["observation_timing"] = dict(times, bound_ms=bound_ms,
+                                     bound_by="bytes")
+    log(f"time observation: {N_ENVS} envs, window {OBS_WINDOW}, float32, "
+        f"push: a call in a graph of {OBS_GRAPH_CALLS} kernel "
+        f"{times['ms']:.5f} ms, plain version {times['plain_ms']:.5f} ms; "
+        f"a call eagerly {times['eager_ms']:.4f} / "
+        f"{times['plain_eager_ms']:.4f} ms (medians of {iters}, CUDA "
+        f"events); bound {bound_ms:.5f} ms ({nbytes} bytes at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s): the kernel in a graph "
+        f"{100 * bound_ms / times['ms']:.2f} % of it; grid "
+        f"{-(-N_ENVS // 8)} x 256 threads; card: {rec['card']}")
+
+
 def phase_check(rec):
     f64, f32 = torch.float64, torch.float32
     dp = dict(friction_range=(0.4, 0.8), gain_range=(0.8, 1.2),
@@ -799,6 +939,7 @@ def phase_check(rec):
     check_oracle(rec)
     check_gradient(rec)
     check_lane(rec)
+    check_observation(rec)
 
 
 def check_split(rec, seed=30, iters=5):
@@ -1515,10 +1656,15 @@ def phase_env(rec, steps=50, warm=10):
                              "whose time did not advance by a control step")
     if int(n_done) == 0:
         raise AssertionError("env: no episode ended, auto-reset not driven")
+    # the observation kernel twice a step (the step's frame, the
+    # auto-reset's), the same way
+    obs_launches = cuda_engine.launch_counts["po_window"]
     if (graphs != {"captures": 1, "replays": steps - 2, "eager": 1}
-            or launches != 2 or cuda_engine.launch_counts[ROLLOUT] != 0):
-        raise AssertionError(f"env: {launches} substep launches and calls "
-                             f"{graphs} in {steps} steps")
+            or launches != 2 or obs_launches != 4
+            or cuda_engine.launch_counts[ROLLOUT] != 0):
+        raise AssertionError(f"env: {launches} substep and {obs_launches} "
+                             f"observation launches and calls {graphs} in "
+                             f"{steps} steps")
     rec["env_steps_per_s"] = N_ENVS * (steps - warm) / elapsed
     rec["env_step_ms"] = 1e3 * elapsed / (steps - warm)
     counts = rec.setdefault("launches", {})
@@ -1528,7 +1674,8 @@ def phase_env(rec, steps=50, warm=10):
         f"obs {tuple(out.obs.shape)}, mean reward "
         f"{float(out.reward.mean()):.3f}, {int(n_done)} resets, mean base z "
         f"{float(out.state.phys.qpos[:, 2].mean()):.4f}; substep launches "
-        f"{launches}, graph {graphs}; {rec['env_steps_per_s']:.1f} env-steps/s, "
+        f"{launches}, observation launches {obs_launches}, graph {graphs}; "
+        f"{rec['env_steps_per_s']:.1f} env-steps/s, "
         f"{rec['env_step_ms']:.3f} ms per step over the last "
         f"{steps - warm} steps (host clock, one synchronise at the end); "
         f"card: {rec['card']}")
@@ -1767,8 +1914,9 @@ def phase_parallel(rec):
         parallel_rollouts(rec, out, mesh)
         parallel_sqp(rec, out)
         parallel_ppo(rec, out, fold_in)
-        if cuda_engine.launch_counts != {ROLLOUT: 0, SUBSTEP: 0}:
-            raise AssertionError(f"parallel (c)-(f): kernel launches "
+        if cuda_engine.launch_counts[ROLLOUT] or cuda_engine.launch_counts[
+                SUBSTEP]:
+            raise AssertionError(f"parallel (c)-(f): physics kernel launches "
                                  f"{cuda_engine.launch_counts} (want none)")
     if dist.is_initialized():
         raise AssertionError("parallel: the phase's group outlived it")
@@ -3528,6 +3676,8 @@ def kernels_line(rec) -> dict:
         row(SUBSTEP, "substep_kernel.cu",
             "quadruped_gym_tpu/ops/pallas_engine.py:86",
             "substep_max_abs_err_main_shape", u),
+        row("po_window", "observation_kernel.cu", None,
+            "observation_max_abs_err", rec.get("observation_timing", {})),
     ]}
 
 

@@ -103,16 +103,18 @@ def build_all(sources=None, dtypes=("float32", "float64")) -> None:
 def ptxas_report(source: str, dtype: str) -> str:
     """What ``nvcc -Xptxas -v`` said about the built library's kernels:
     registers, stack frame, spill stores and loads, under each kernel's
-    name and split (``substep_kernel<4>``)."""
+    name and, for a template on the split, its split
+    (``substep_kernel<4>``)."""
     with open(_lib_path(source, dtype) + ".log") as f:
         lines = f.read().splitlines()
     keep = ("registers", "spill", "stack frame")
     out = []
     for ln in lines:
         name = re.search(
-            r"Function properties for _ZN2qg\d+([a-z_]+)ILi(\d+)E", ln)
+            r"Function properties for _ZN2qg\d+([a-z_]+)(?:ILi(\d+)E)?", ln)
         if name:
-            out.append(f"{name.group(1)}<{name.group(2)}>:")
+            split = f"<{name.group(2)}>" if name.group(2) else ""
+            out.append(f"{name.group(1)}{split}:")
         elif any(k in ln for k in keep):
             out.append(ln.strip())
     return "\n".join(out)

@@ -1,4 +1,5 @@
-"""The CUDA kernels of the leg-batched physics and their wrappers.
+"""The CUDA kernels of the leg-batched physics and of the walking task's
+partial observation, and their wrappers.
 
 Counterpart of ``quadruped_gym_tpu/ops/pallas_engine.py``, which holds the
 JAX package's two Pallas TPU kernels:
@@ -13,16 +14,23 @@ JAX package's two Pallas TPU kernels:
   ``LaneState``, writing every sensor; one launch of
   ``csrc/substep_kernel.cu`` per call.
 
+A third kernel has no TPU counterpart: ``po_window`` computes the
+walking task's partial observation and its frame window
+(``tasks/observations.py``), which the JAX package leaves to XLA to fuse,
+in one launch of ``csrc/observation_kernel.cu`` where PyTorch would run
+~120 small kernels.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``fused_rollout_cost_reference``, ``step_reference``,
-``control_step_reference``: the eager leg engine) only for CPU tensors.
+``control_step_reference``: the eager leg engine; ``po_window_reference``)
+only for CPU tensors.
 The model's constants are packed into one ``LegModel`` struct
 (``csrc/leg_model.cuh``) and uploaded once per (model, dtype, device).
 
-Both kernels give a robot to four threads, one per leg, times a split of
-1, 2 or 4 replicas that share the hull-vertex scans, and keep the
-contact rows of the model's slots in dynamic shared memory, one column a
-leg. ``launch_geometry`` chooses the split, the block size, the grid and
+Both physics kernels give a robot to four threads, one per leg, times a
+split of 1, 2 or 4 replicas that share the hull-vertex scans, and keep
+the contact rows of the model's slots in dynamic shared memory, one
+column a leg. ``launch_geometry`` chooses the split, the block size, the grid and
 the shared bytes of a launch from the model's slot count, the type, the
 batch and the warps a scheduler its replicas may fill; the C launch
 functions take them as arguments.
@@ -49,6 +57,7 @@ from ..models.spec import (
     DomainParams,
     PhysicsModel,
 )
+from ..tasks import observations
 from ..tasks.rewards import JOINT_CENTERS, SensorSlices
 from ..utils import profiling
 from . import _build
@@ -57,6 +66,7 @@ from .lane_engine import LaneState, _kb_from_solref, _np_quat_mat, _static
 
 KERNEL_SOURCE = "rollout_kernel.cu"
 SUBSTEP_SOURCE = "substep_kernel.cu"
+OBSERVATION_SOURCE = "observation_kernel.cu"
 MAX_GROUPS = 7
 MAX_VERTS = 2048
 MAX_SENSORS = 24
@@ -90,7 +100,7 @@ SPLITS = (4, 2, 1)
 LONG_SCANS = 1024
 
 # launches of each kernel wrapper; a run sets them to 0 and reads them
-launch_counts = {"fused_rollout_cost": 0, "substep": 0}
+launch_counts = {"fused_rollout_cost": 0, "substep": 0, "po_window": 0}
 
 # what the last launch of each kernel by its wrapper got (an eager call or
 # a CUDA graph's capture; a replay runs no wrapper): by kernel, the
@@ -790,6 +800,120 @@ def control_step(m: PhysicsModel, ls: LaneState, ctrl: torch.Tensor,
                                           solver_iterations, ls_iterations, dp)
         return _launch_substeps(m, ls, ctrl, frame_skip, solver_iterations,
                                 ls_iterations, dp, True)
+
+
+# --------------------------------------------------------------------------
+# the partial observation (tasks/observations.py) in one launch
+
+
+class _Strided(ctypes.Structure):
+    """``csrc/po_observation.cuh::StridedArg``: a view's data and its
+    strides in elements."""
+    _fields_ = [("data", ctypes.c_void_p), ("env", ctypes.c_longlong),
+                ("comp", ctypes.c_longlong)]
+
+
+def _observation_library(dtype: torch.dtype) -> ctypes.CDLL:
+    name = {torch.float32: "float32", torch.float64: "float64"}[dtype]
+    lib = _build.load(OBSERVATION_SOURCE, name)
+    if not getattr(lib, "_qg_bound", False):
+        lib.qg_po_window.restype = ctypes.c_int
+        lib.qg_po_window.argtypes = (
+            [ctypes.POINTER(_Strided), ctypes.POINTER(ctypes.c_int)]
+            + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib._qg_bound = True
+    return lib
+
+
+def po_window_reference(sl: SensorSlices, sens, ctrl, cmd,
+                        carry: observations.PoObsCarry, time,
+                        settling_time: float, control_dt: float,
+                        fill: bool = False) -> observations.PoObsCarry:
+    """The plain version of ``po_window``: ``observations.po_observation``,
+    then ``stack_fill`` or ``stack_push``."""
+    frame, quat = observations.po_observation(
+        sl, sens, ctrl, cmd, carry.mad_quat, time, settling_time, control_dt)
+    stack = observations.stack_fill if fill else observations.stack_push
+    return observations.PoObsCarry(mad_quat=quat,
+                                   buffer=stack(carry.buffer, frame))
+
+
+def _po_window_args(sl: SensorSlices, sens, ctrl, cmd, carry, time,
+                    fill: bool):
+    """Check ``po_window``'s inputs against each other and allocate its
+    outputs beside them: the six views and three sensor addresses the
+    kernel reads, the old window (None where it is filled), the (N, 4)
+    quaternion and (N, W, 26) window it writes."""
+    dev, dt = sens.device, sens.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"the observation kernel takes float32/float64, "
+                        f"got {dt}")
+    buffer = carry.buffer
+    if buffer.dim() != 3 or buffer.shape[1] < 1:
+        raise ValueError(f"the window must be (N, W, "
+                         f"{observations.PO_OBS_DIM}), got "
+                         f"{tuple(buffer.shape)}")
+    N, W = buffer.shape[0], buffer.shape[1]
+    inputs = (("sensordata", sens, (N, sens.shape[-1])),
+              ("ctrl", ctrl, (N, 12)),
+              ("cmd.velocity", cmd.velocity, (N, 3)),
+              ("cmd.heading", cmd.heading, (N, 3)),
+              ("mad_quat", carry.mad_quat, (N, 4)), ("time", time, (N,)),
+              ("window", buffer, (N, W, observations.PO_OBS_DIM)))
+    for name, x, shape in inputs:
+        if (x.shape != shape or x.dtype != dt or x.device != dev
+                or x.requires_grad):
+            raise ValueError(
+                f"{name} must be a {shape} {dt} tensor on {dev} that "
+                f"requires no grad, got {tuple(x.shape)} {x.dtype} on "
+                f"{x.device}")
+    nsens = max(sl.gyro + 3, sl.accel + 3, sl.vel + 2)
+    if sens.shape[-1] < nsens:
+        raise ValueError(f"sensordata has {sens.shape[-1]} values, the "
+                         f"slices read {nsens}")
+    views = (_Strided * 6)(*(
+        _Strided(x.data_ptr(), x.stride(0), x.stride(-1) if x.dim() > 1
+                 else 0) for _, x, _ in inputs[:6]))
+    adr = (ctypes.c_int * 3)(sl.gyro, sl.accel, sl.vel)
+    window = None if fill else buffer.contiguous()  # a copy only for a view
+    quat_o = torch.empty((N, 4), dtype=dt, device=dev)
+    window_o = torch.empty((N, W, observations.PO_OBS_DIM), dtype=dt,
+                           device=dev)
+    return views, adr, window, quat_o, window_o
+
+
+def po_window(sl: SensorSlices, sens: torch.Tensor, ctrl: torch.Tensor, cmd,
+              carry: observations.PoObsCarry, time: torch.Tensor,
+              settling_time: float, control_dt: float,
+              fill: bool = False) -> observations.PoObsCarry:
+    """The partial observation of N envs and the frame window it enters:
+    the new filter quaternion (N, 4) and the window (N, W, 26), the old one
+    pushed by the frame, or filled with it where ``fill``. ``sens`` is
+    (N, nsensordata), ``ctrl`` (N, 12), ``cmd`` a ``Command`` of (N, 3)
+    fields, ``carry`` the (N, 4) quaternion and (N, W, 26) window, ``time``
+    (N,); views are read through their strides. CPU tensors go to the
+    plain version; CUDA tensors to one launch of the kernel, which raises
+    rather than fall back."""
+    if sens.device.type == "cpu":
+        return po_window_reference(sl, sens, ctrl, cmd, carry, time,
+                                   settling_time, control_dt, fill)
+    if sens.device.type != "cuda":
+        raise ValueError(f"unsupported device {sens.device}")
+    views, adr, window, quat_o, window_o = _po_window_args(
+        sl, sens, ctrl, cmd, carry, time, fill)
+    N, W = window_o.shape[:2]
+    lib = _observation_library(sens.dtype)
+    err = lib.qg_po_window(
+        views, adr, settling_time / 2.0, control_dt,
+        None if window is None else window.data_ptr(), quat_o.data_ptr(),
+        window_o.data_ptr(), N, W,
+        torch.cuda.current_stream(sens.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"observation kernel launch failed: CUDA error "
+                           f"{err} ({N} envs, a window of {W})")
+    launch_counts["po_window"] += 1
+    return observations.PoObsCarry(mad_quat=quat_o, buffer=window_o)
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,9 @@ Reference semantics preserved: the Madgwick quaternion only integrates
 when sim time has passed settling_time/2; at reset the observation is
 computed with the *stale* filter state before the filter is re-seeded
 from the true base quaternion (``tasks.walking.reset`` does that).
+
+These are the plain versions: the task calls ``ops.cuda_engine.po_window``,
+which runs them for CPU tensors and one kernel launch for CUDA tensors.
 """
 
 from __future__ import annotations

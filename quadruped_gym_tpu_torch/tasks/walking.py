@@ -32,6 +32,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.spec import PhysicsModel
+from ..ops import cuda_engine
 from ..physics import engine, smooth
 from ..physics.engine import State, make_state
 from . import commands, estimator, observations, rewards
@@ -139,13 +140,13 @@ def reset(
                                            device=dev, batch_shape=(N,))
     # PO reset obs computed with the STALE filter quat
     if cfg.partial_obs:
-        frame, _ = observations.po_observation(
-            sl, phys.sensordata, ctrl0, cmd, obs_carry.mad_quat,
-            phys.time, cfg.settling_time, cfg.control_dt(m),
+        filled = cuda_engine.po_window(
+            sl, phys.sensordata, ctrl0, cmd, obs_carry, phys.time,
+            cfg.settling_time, cfg.control_dt(m), fill=True,
         )
         obs_carry = observations.PoObsCarry(
             mad_quat=phys.qpos[:, 3:7],  # re-seed from the true orientation
-            buffer=observations.stack_fill(obs_carry.buffer, frame),
+            buffer=filled.buffer,
         )
         obs = obs_carry.buffer.reshape(N, -1)
     else:
@@ -208,13 +209,10 @@ def _task_step(
 
         # 7. observation
         if cfg.partial_obs:
-            frame, mad_q = observations.po_observation(
-                sl, phys.sensordata, ctrl, state.cmd, state.obs.mad_quat,
-                phys.time, cfg.settling_time, cdt,
+            obs_carry = cuda_engine.po_window(
+                sl, phys.sensordata, ctrl, state.cmd, state.obs, phys.time,
+                cfg.settling_time, cdt,
             )
-            obs_carry = observations.PoObsCarry(
-                mad_quat=mad_q,
-                buffer=observations.stack_push(state.obs.buffer, frame))
             obs = obs_carry.buffer.reshape(N, -1)
         else:
             obs_carry = state.obs
@@ -259,7 +257,7 @@ def batched_engine(m: PhysicsModel, engine_impl: str):
     ``m``: ``ops.cuda_engine`` for ``"pallas"`` on a leg-compatible model,
     ``ops.leg_engine`` for ``"leg"`` and ``"auto"`` on one,
     ``ops.lane_engine`` otherwise."""
-    from ..ops import cuda_engine, lane_engine, leg_engine
+    from ..ops import lane_engine, leg_engine
 
     if engine_impl not in ("auto", "leg", "pallas", "lane"):
         raise ValueError(f"unknown engine_impl {engine_impl!r}; "
@@ -293,7 +291,7 @@ def batched_step(
     lane engine. The Newton budget is a fixed iteration
     count: ``newton_iterations`` defaults to ``cfg.solver_iterations``
     (or 4 when that is None)."""
-    from ..ops import cuda_engine, lane_engine
+    from ..ops import lane_engine
 
     if newton_iterations is None:
         newton_iterations = cfg.solver_iterations or 4

@@ -161,8 +161,9 @@ def test_build_names_and_flags():
     assert os.path.isfile(os.path.join(_build.CSRC,
                                        cuda_engine.KERNEL_SOURCE))
     # every kernel source is built, and each has its wrapper's name
-    assert _build.kernel_sources() == (cuda_engine.KERNEL_SOURCE,
-                                       cuda_engine.SUBSTEP_SOURCE)
+    assert _build.kernel_sources() == tuple(sorted((
+        cuda_engine.KERNEL_SOURCE, cuda_engine.SUBSTEP_SOURCE,
+        cuda_engine.OBSERVATION_SOURCE)))
     sub = _build._lib_path(cuda_engine.SUBSTEP_SOURCE, "float32")
     assert sub != f32 and "substep_kernel" in sub
 

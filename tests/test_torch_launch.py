@@ -55,7 +55,7 @@ def test_limits_match_the_cuda_sources():
             f.read())
     assert sorted(int(a) for a, b in cases if a == b) == sorted(
         cuda_engine.SPLITS)
-    for source in _build.kernel_sources():
+    for source in (cuda_engine.KERNEL_SOURCE, cuda_engine.SUBSTEP_SOURCE):
         with open(os.path.join(_build.CSRC, source)) as f:
             src = f.read()
         assert "__launch_bounds__(MAX_THREADS, MIN_BLOCKS)" in src
@@ -292,11 +292,16 @@ def test_ptxas_report_names_each_split(monkeypatch, tmp_path):
         "_ZN2qg14substep_kernelILi1EEEvPKNS_8LegModelIfEE\n"
         "    88 bytes stack frame, 52 bytes spill stores, 68 bytes spill "
         "loads\n"
-        "ptxas info    : Used 255 registers\n")
+        "ptxas info    : Used 255 registers\n"
+        "ptxas info    : Function properties for "
+        "_ZN2qg16po_window_kernelENS_8PoInputsIfEEPKfPfS4_ii\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers\n")
     monkeypatch.setattr(_build, "_lib_path",
                         lambda s, d: str(tmp_path / "k.so"))
     lines = _build.ptxas_report("substep_kernel.cu", "float32").splitlines()
     assert lines[0] == "substep_kernel<2>:"
     assert lines[3] == "substep_kernel<1>:"
     assert lines[4].startswith("88 bytes stack frame")
-    assert len(lines) == 6
+    assert lines[6] == "po_window_kernel:"  # no template on the split
+    assert len(lines) == 9
