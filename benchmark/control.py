@@ -1,4 +1,5 @@
-"""The readings a cell's limits are set from, on the card, in one process.
+"""The readings a cell's limits are set from, on the card, in one process
+(one a rank for a cell on several cards).
 
     python3 benchmark/control.py --workload <cell> --seeds <a,b,...> \
         --control-seeds <n> --seconds <s> [--lanes <rollouts a pass>]
@@ -27,17 +28,43 @@ if ROOT not in sys.path:
 from benchmark import harness  # noqa: E402
 
 
-def readings(cell, seeds, control_seeds, seconds, device, lanes=None):
-    """{seed: {"failed": n, "program": gaps, "control": gaps or None}}."""
+def readings(cell, seeds, control_seeds, seconds, device, lanes=None,
+             plant=None):
+    """{seed: {"failed": n, "program": gaps, "control": gaps or None}}. A
+    cell on several cards reads on as many ranks (``benchmark/ranks.py``;
+    ``plant`` as in ``harness.run_cell``)."""
+    import torch
+
+    if cell.chips > 1:
+        from benchmark import ranks
+
+        return ranks.spmd(
+            cell.chips, torch.device(device).type, "benchmark.control:rank_readings",
+            {"cell": cell._asdict(), "seeds": list(seeds),
+             "control_seeds": control_seeds, "seconds": seconds,
+             "lanes": lanes}, plant)
+    return _readings(cell, seeds, control_seeds, seconds,
+                     torch.device(device), lanes)
+
+
+def rank_readings(ranks, cell, seeds, control_seeds, seconds, lanes):
+    """``readings`` on one rank: rank 0's, None on the others."""
+    return _readings(harness.Cell(**cell), seeds, control_seeds, seconds,
+                     ranks.device, lanes, ranks)
+
+
+def _readings(cell, seeds, control_seeds, seconds, device, lanes=None,
+              ranks=None):
     import torch
 
     mod = harness.load_module(
         os.path.join(harness.BENCH_DIR, "traffic",
                      cell.traffic["driver"] + ".py"),
         "bench_traffic_" + cell.traffic["driver"])
+    group = () if ranks is None else (ranks,)
     runs = []
     for seed in seeds:
-        drv = mod.Driver(cell, seed, torch.device(device))
+        drv = mod.Driver(cell, seed, device, *group)
         drv.setup()
         drv.window(seconds)
         inputs, outputs, failed, _ = drv.sample()
@@ -46,6 +73,8 @@ def readings(cell, seeds, control_seeds, seconds, device, lanes=None):
                               torch.float64, lanes)
     ctls = mod.reference_many([(d, x) for _, d, x, _, _ in runs[:control_seeds]],
                               torch.bfloat16, lanes) if control_seeds else []
+    if ranks is not None and ranks.rank != 0:
+        return None
     out = {}
     for i, (seed, _, _, outputs, failed) in enumerate(runs):
         out[seed] = {
@@ -69,10 +98,12 @@ def main(argv=None):
     p.add_argument("--seconds", type=float, default=3.0)
     p.add_argument("--lanes", type=int, default=None)
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("control: no CUDA device", file=sys.stderr)
-        return 3
     cell = harness.load_cell(args.workload)
+    seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if seen < cell.chips:
+        print(f"control: the cell needs {cell.chips} CUDA device(s); torch "
+              f"sees {seen}", file=sys.stderr)
+        return 3
     t0 = time.perf_counter()
     res = readings(cell, [int(s) for s in args.seeds.split(",")],
                    args.control_seeds, args.seconds, "cuda", args.lanes)

@@ -18,6 +18,12 @@ cell's own shapes), a window of ``--seconds`` of back-to-back requests
 (with ``--trace 1`` under ``torch.profiler``, the card's activity alone),
 then the check of a sample of the window's answers against the plain
 reference in ``benchmark/reference/``, and one JSON line.
+
+A cell whose ``chips`` is more than 1 runs on as many ranks, one process
+a card (``benchmark/ranks.py``): the process the command started is rank
+0, keeps the clock, traces and prints the line; the others follow it
+request by request. Its driver takes the ``Ranks`` as a fourth argument
+and runs the window through ``Ranks.window``.
 """
 
 from __future__ import annotations
@@ -278,33 +284,26 @@ def mfu_pct(ctx: "Context", ops_per_request: float) -> Optional[float]:
             / (ctx.trace.window_s * ctx.peaks["fp32_flops"]))
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
-             t_start: float) -> dict:
-    """Set-up, window, metrics and check of one run: the result line's
-    object, with the checks under ``checks``."""
-    import torch
-
-    dev = torch.device(device)
-    on_card = dev.type == "cuda"
-    driver_mod = load_module(
+def _driver(cell: Cell, seed: int, dev, *ranks):
+    mod = load_module(
         os.path.join(BENCH_DIR, "traffic", cell.traffic["driver"] + ".py"),
         "bench_traffic_" + cell.traffic["driver"])
-    drv = driver_mod.Driver(cell, seed, dev)
-    drv.setup()
-    if on_card:
-        torch.cuda.synchronize(dev)
-    setup_s = time.perf_counter() - t_start
+    return mod.Driver(cell, seed, dev, *ranks)
 
-    tracer = None
-    if trace:
-        part = cell.workload.get("trace", {"skip": 0, "requests": None})
-        tracer = Tracer(part["skip"], part["requests"], dev)
-        tracer.tick(0)
-    requests = drv.window(seconds, tracer)
-    if tracer is not None:
-        tracer.close()
-    memory_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
 
+def _tracer(cell: Cell, trace: bool, dev) -> Optional[Tracer]:
+    if not trace:
+        return None
+    part = cell.workload.get("trace", {"skip": 0, "requests": None})
+    tracer = Tracer(part["skip"], part["requests"], dev)
+    tracer.tick(0)
+    return tracer
+
+
+def _readings(cell: Cell, seed: int, setup_s: float, requests, tracer,
+              trace: bool):
+    """The window's metrics: (the trace or None, metrics, the names of
+    those its readers found nothing for)."""
     tr = None
     if tracer is not None:
         requests = tracer.traced(requests)
@@ -326,8 +325,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         else:
             metrics[entry["name"]] = {"value": float(value),
                                       "unit": entry["unit"]}
+    return tr, metrics, missing
 
-    check = drv.check()
+
+def _result(check: dict, metrics: dict, missing: list, tr, dev, count: int,
+            memory_peak: int) -> dict:
+    import torch
+
+    on_card = dev.type == "cuda"
     result = {
         "correct": check["correct"],
         "attempted": check["attempted"],
@@ -336,7 +341,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         "device": {
             "platform": "gpu" if on_card else "cpu",
             "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
-            "count": 1,
+            "count": count,
             "memory_peak_bytes": int(memory_peak),
         },
     }
@@ -350,6 +355,83 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     return result
 
 
+def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
+             t_start: float, plant: Optional[str] = None) -> dict:
+    """Set-up, window, metrics and check of one run: the result line's
+    object, with the checks under ``checks``. A cell on more than one
+    card runs ``run_rank`` on as many ranks (``benchmark/ranks.py``;
+    ``plant`` is the faults its CPU tests plant in ranks 1 to N-1)."""
+    import torch
+
+    if cell.chips > 1:
+        from benchmark import ranks
+
+        return ranks.spmd(
+            cell.chips, torch.device(device).type, "benchmark.harness:run_rank",
+            {"cell": cell._asdict(), "seed": seed, "seconds": seconds,
+             "trace": trace, "t_start": t_start}, plant)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    drv = _driver(cell, seed, dev)
+    drv.setup()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t_start
+
+    tracer = _tracer(cell, trace, dev)
+    requests = drv.window(seconds, tracer)
+    if tracer is not None:
+        tracer.close()
+    memory_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+
+    tr, metrics, missing = _readings(cell, seed, setup_s, requests, tracer,
+                                     trace)
+    check = drv.check()
+    return _result(check, metrics, missing, tr, dev, 1, memory_peak)
+
+
+def run_rank(ranks, cell: dict, seed: int, seconds: float, trace: bool,
+             t_start: float) -> Optional[dict]:
+    """``run_cell`` on one rank of a cell on several cards: every rank
+    sets up its driver and waits for the others (``setup_s``, rank 0's
+    clock from its first line, counts the ranks' start); the window runs
+    in lockstep; rank 0 alone traces and reads the metrics; the check is
+    the driver's, on every rank; rank 0 gathers every rank's memory peak
+    and the banned modules each loaded. Rank 0's result, None on the
+    others."""
+    import torch
+
+    cell = Cell(**cell)
+    dev = ranks.device
+    on_card = dev.type == "cuda"
+    lead = ranks.rank == 0
+    drv = _driver(cell, seed, dev, ranks)
+    drv.setup()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    ranks.barrier()
+    setup_s = time.perf_counter() - t_start
+
+    tracer = _tracer(cell, trace and lead, dev)
+    requests = drv.window(seconds, tracer)
+    if tracer is not None:
+        tracer.close()
+    memory_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+
+    if lead:
+        tr, metrics, missing = _readings(cell, seed, setup_s, requests,
+                                         tracer, trace)
+    check = drv.check()
+    each = ranks.gather_objects((memory_peak, banned_modules()))
+    if not lead:
+        return None
+    result = _result(check, metrics, missing, tr, dev, ranks.world,
+                     max(peak for peak, _ in each))
+    result["banned_by_rank"] = {r: bad for r, (_, bad) in enumerate(each)
+                                if r and bad}
+    return result
+
+
 def _parser():
     p = argparse.ArgumentParser(description="Run one benchmark cell.")
     p.add_argument("--workload", required=True)
@@ -360,7 +442,17 @@ def _parser():
 
 
 def main(argv, t_start: float) -> int:
-    """The command: look for the card the cell needs, then run it."""
+    """The command: look for the card the cell needs, then run it. With
+    ``--rank <r> --job <dir>``, rank r of a cell on several cards, which
+    rank 0 started (``benchmark/ranks.py``)."""
+    if argv[:1] == ["--rank"]:
+        from benchmark import ranks
+
+        p = argparse.ArgumentParser(description="One rank of a cell.")
+        p.add_argument("--rank", type=int, required=True)
+        p.add_argument("--job", required=True)
+        child = p.parse_args(argv)
+        return ranks.child_main(child.rank, child.job)
     args = _parser().parse_args(argv)
     cell = load_cell(args.workload)
     import torch
@@ -373,13 +465,22 @@ def main(argv, t_start: float) -> int:
     return report(cell, args, "cuda", t_start)
 
 
-def report(cell: Cell, args, device, t_start: float) -> int:
+def report(cell: Cell, args, device, t_start: float,
+           plant: Optional[str] = None) -> int:
     """Run the cell on ``device`` and print its result; the exit code."""
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                      device, t_start)
+    from benchmark.ranks import EXIT_RANK_FAILED, RankFailed
+
+    try:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                          device, t_start, plant)
+    except RankFailed:
+        return EXIT_RANK_FAILED  # the line that names the rank is out
     bad = banned_modules()
-    if bad:
-        print(f"benchmark: the run loaded {', '.join(bad)}", file=sys.stderr)
+    found = [", ".join(bad)] if bad else []
+    found += [f"{', '.join(b)} (rank {r})"
+              for r, b in result.pop("banned_by_rank", {}).items()]
+    if found:
+        print(f"benchmark: the run loaded {'; '.join(found)}", file=sys.stderr)
         return 4
     missing = result.pop("missing")
     if missing:

@@ -10,4 +10,5 @@ if ROOT not in sys.path:
 # the sizes a CPU test runs a cell at: the cell's own code path, S and H cut
 TINY = {"num_samples": 16, "horizon": 3, "warmup": 1}
 TINY_ENV = {"num_envs": 8, "warmup": 1}
-MPC_CELLS = ("planning-mppi-65k", "fast-plant-mppi-65k", "planning-replan-4k")
+MPC_CELLS = ("planning-mppi-65k", "fast-plant-mppi-65k", "planning-replan-4k",
+             "planning-mppi-4rank")

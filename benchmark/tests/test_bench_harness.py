@@ -43,7 +43,7 @@ def test_manifest_keys_and_names():
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_cell_files_load(cell):
     c = harness.load_cell(cell)
-    assert c.chips == 1
+    assert c.chips in (1, 4)
     assert c.workload["config"] == c.config["name"]
     assert os.path.exists(os.path.join(harness.BENCH_DIR, "traffic",
                                        c.traffic["driver"] + ".py"))
@@ -57,6 +57,13 @@ def test_cell_files_load(cell):
     # setup_s, another end-to-end metric and a per-layer metric
     names = [m["name"] for m in c.end_to_end]
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
+
+
+def test_four_card_cells_are_few():
+    """At most a quarter of the cells, rounded down, ask for four cards,
+    and one always may."""
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
 
 
 def test_config_files():
